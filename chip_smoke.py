@@ -15,16 +15,22 @@ Phases (each prints its own lines; any failure exits non-zero):
   3. the main path, `associate` on the dtable route at its real shape
      (N=1008, P=101, top-10001, 2,000,000-row batches, ~4.2M rows), held
      against a numpy f64 brute force;
-  4. the CLI, `associate --device cuda` against `--device cpu`: output
+  4. the scan step's settled regime at the same shape: 85 device-made
+     2M-row batches through `scan_step_compact` (the append branch engages
+     once the threshold settles), held bit for bit against a plain running
+     top-k, with step times and a profiled window of settled steps;
+  5. the CLI, `associate --device cuda` against `--device cpu`: output
      files byte-identical.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without CUDA the script fails at once.
+The script writes its inputs itself and imports nothing of the JAX
+package. The line before the last is the kernels' JSON record; the last
+line is {"ok": true, "device": {...}}. Without CUDA the script fails at
+once.
 """
-import argparse
 import json
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -118,11 +124,11 @@ def phase_env():
 
 # ---------------------------------------------------------------- phase 2
 
-def make_batch(rows, n, p, seed, pad_rows, gaussian):
+def make_planes(rows, n, seed, pad_rows=0):
     """Random packed planes on the card (bits past n zero, the last
-    `pad_rows` rows zero = padding), popcounts and phenotypes."""
+    `pad_rows` rows zero = padding) and their popcounts."""
     import torch
-    from kmersgwas_tpu_torch.ops import bitplanes, score
+    from kmersgwas_tpu_torch.ops import bitplanes
     n_pad = -(-n // 128) * 128
     w32 = n_pad // 32
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -135,11 +141,17 @@ def make_batch(rows, n, p, seed, pad_rows, gaussian):
     packed &= mask
     if pad_rows:
         packed[rows - pad_rows:] = 0
-    popcnt = bitplanes.popcount_rows(packed)
+    return packed, bitplanes.popcount_rows(packed)
+
+
+def make_batch(rows, n, p, seed, pad_rows, gaussian):
+    """make_planes plus phenotypes (padded y and column sums)."""
+    from kmersgwas_tpu_torch.ops import score
+    packed, popcnt = make_planes(rows, n, seed, pad_rows)
     rng = np.random.default_rng(seed)
     y = (rng.normal(size=(n, p)).astype(np.float32) if gaussian
          else dyadic(rng, (n, p)))
-    yp, ysum = score.prepare_phenotypes(y, n_pad, "cuda")
+    yp, ysum = score.prepare_phenotypes(y, -(-n // 128) * 128, "cuda")
     return packed, popcnt, yp, ysum
 
 
@@ -229,19 +241,24 @@ def check_kernels_at(rows, n, p, w, seed, label, timing=False):
     return err1, err2, times
 
 
-def phase_kernels(quick):
+def phase_kernels():
+    """-> the largest errors measured over every shape (Gaussian phenotypes
+    at "highest"; dyadic ones are checked bit-equal) and the flagship
+    times."""
+    e1 = e2 = 0.0
     for rows, n, p, w in ((1024, 100, 3, 16), (1024, 100, 70, 256),
                           (4096, 1008, 101, 256)):
-        check_kernels_at(rows, n, p, w, seed=rows + p, label=f"R={rows} "
-                         f"N={n} P={p} W={w}")
-    if quick:
-        return dict(err1=0.0, err2=0.0, times=(None,) * 4)
-    e1, e2, times = check_kernels_at(2_097_152, 1008, 101, 256, seed=7,
-                                     label="flagship", timing=True)
+        a, b, _ = check_kernels_at(rows, n, p, w, seed=rows + p,
+                                   label=f"R={rows} N={n} P={p} W={w}")
+        e1, e2 = max(e1, a), max(e2, b)
+    a, b, times = check_kernels_at(2_097_152, 1008, 101, 256, seed=7,
+                                   label="flagship", timing=True)
+    e1, e2 = max(e1, a), max(e2, b)
     log(f"flagship K1 score_topw: kernel {times[0]:.3f} ms, plain "
         f"{times[1]:.3f} ms; K2 score_bmax: kernel {times[2]:.3f} ms, plain "
         f"{times[3]:.3f} ms (median CUDA-event times)")
-    log(f"max abs err (gaussian, highest): K1 {e1:.3g}, K2 {e2:.3g}")
+    log(f"max abs err over all shapes (gaussian, highest): K1 {e1:.3g}, "
+        f"K2 {e2:.3g}")
     return dict(err1=e1, err2=e2, times=times)
 
 
@@ -251,10 +268,14 @@ _BYTE_POPCOUNT = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
                                axis=1).sum(axis=1).astype(np.uint8)
 
 
+# the .table header: magic, accession count, k-mer length (little endian)
+TABLE_HEADER = struct.Struct("<IQI")
+TABLE_MAGIC = 0xDDCCBBAA
+
+
 def write_table(base, n, n_rows, kmer_len, seed):
-    """Synthetic .table (written as bench.py:34-64 does, with every file
-    bit past n zero) -> (names, popcount of every row)."""
-    from kmersgwas_tpu.core import formats
+    """Synthetic .table and .names (the layout bench.py:34-64 writes, with
+    every file bit past n zero) -> (names, popcount of every row)."""
     names = [f"acc{i}" for i in range(n)]
     wf = (n + 63) // 64
     tail_mask = np.uint64((1 << (n - 64 * (wf - 1))) - 1) if n % 64 \
@@ -262,7 +283,7 @@ def write_table(base, n, n_rows, kmer_len, seed):
     rng = np.random.default_rng(seed)
     pcs = []
     with open(base + ".table", "wb") as f:
-        formats.write_table_header(f, n, kmer_len)
+        f.write(TABLE_HEADER.pack(TABLE_MAGIC, n, kmer_len))
         chunk = 1 << 20
         for s in range(0, n_rows, chunk):
             m = min(chunk, n_rows - s)
@@ -274,18 +295,26 @@ def write_table(base, n, n_rows, kmer_len, seed):
             pcs.append(_BYTE_POPCOUNT[rows[:, 1:].view(np.uint8)].sum(
                 axis=1, dtype=np.int64))
             rows.tofile(f)
-    formats.write_names(base, names)
+    with open(base + ".names", "w") as f:
+        f.write("".join(f"{a}\n" for a in names))
     return names, np.concatenate(pcs)
+
+
+def write_phenotypes(path, names, accessions, values):
+    """Phenotype TSV: `accession_id<TAB>name...` then one row per
+    accession, values in %g (exact for dyadic values)."""
+    with open(path, "w") as f:
+        f.write("accession_id\t" + "\t".join(names) + "\n")
+        for acc, row in zip(accessions, values):
+            f.write(acc + "\t" + "\t".join("%g" % v for v in row) + "\n")
 
 
 def oracle_top(base, n, y_cols, keep, k, chunk=1 << 16):
     """numpy f64 brute force: per column, the top-k table rows by (exact
     score desc, row asc) among MAC-passing rows, with their scores."""
-    from kmersgwas_tpu.core import formats
     wf = (n + 63) // 64
     raw = np.memmap(base + ".table", dtype="<u8", mode="r",
-                    offset=formats.TableHeader.HEADER_BYTES).reshape(
-                        -1, 1 + wf)
+                    offset=TABLE_HEADER.size).reshape(-1, 1 + wf)
     y = y_cols.astype(np.float64)
     ysum = y.sum(axis=0)
     best = [(np.empty(0), np.empty(0, np.int64))] * y.shape[1]
@@ -361,6 +390,8 @@ def phase_main(workdir, n_rows=4_200_000, p=101, k=10001, batch=2_000_000,
          f"n_tested {res.n_tested} != MAC-passing rows {int(keep.sum())}")
     need(k1 >= n_batches or not cuda,
          f"K1 launched {k1} times for {n_batches} batches")
+    # the first batch always falls back: the threshold starts at -inf
+    need(k2 >= 1 or not cuda, "K2 was never launched on the main path")
     need(res.certified is not None and all(res.certified),
          f"certified {sum(res.certified or [])}/{p} columns")
     t0 = time.perf_counter()
@@ -379,15 +410,126 @@ def phase_main(workdir, n_rows=4_200_000, p=101, k=10001, batch=2_000_000,
 
 # ---------------------------------------------------------------- phase 4
 
+def device_busy(prof):
+    """(summed device time of every kernel and copy in ms, the three
+    largest (name, ms)) of a torch.profiler run."""
+    per = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            per[e.key] = per.get(e.key, 0.0) + t / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    return sum(per.values()), top
+
+
+def phase_stream(n_batches=80, n_prof=5, rows=2_000_000, n=1008, p=101,
+                 k=10001 + 1024):
+    """The scan step's settled regime at the main path's shape (N=1008,
+    P=101, top-10001 + the certify band, 2,000,000-row batches): device-
+    made batches through scan_step_compact with the scan's parameters, so
+    K1 runs on every batch, K2 on the threshold ramp's fallbacks and the
+    append branch once the threshold settles. Dyadic phenotypes at
+    precision "default" make kernel and plain scores bit-equal, so the
+    final top-k must equal, scores and rows, a plain running top-k (plain
+    scores, one stable sort per batch, earlier rows first on ties). The
+    last n_prof steps run under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kmersgwas_tpu_torch.ops import scanstep as ss
+    from kmersgwas_tpu_torch.ops import score, topk
+    from kmersgwas_tpu_torch.pipeline import scan
+    min_count = scan.effective_min_count(n, 0.05, 5)
+    y = dyadic(np.random.default_rng(11), (n, p))
+    yp, ysum = score.prepare_phenotypes(y, -(-n // 128) * 128, "cuda")
+    state = ss.init_buffered_state(p, k, scan.BUF_CAP, "cuda")
+    counts = {}
+    kw = dict(n_used=n, min_count=min_count, cand_k=min(max(256, k // 8), k),
+              tile_rows=scan.TILE_ROWS, cand_w=scan.CAND_W,
+              cand_q=scan.CAND_Q, precision="default", counts=counts)
+    ov = torch.full((p, k), float("-inf"), device="cuda")
+    orow = torch.zeros((p, k), dtype=torch.int64, device="cuda")
+
+    def batch(b):
+        packed, pc = make_planes(rows, n, seed=1000 + b)
+        lo = torch.arange(b * rows, (b + 1) * rows, dtype=torch.int32,
+                          device="cuda")           # rows < 2^30: hi is 0
+        return packed, pc, lo, torch.zeros_like(lo)
+
+    def oracle(b, packed, pc):
+        nonlocal ov, orow
+        sc = score.scores_t_plain(packed, pc, yp, ysum, n_used=n,
+                                  min_count=min_count, precision="default")
+        v, j = torch.sort(torch.cat([ov, sc], dim=1), dim=1,
+                          descending=True, stable=True)
+        j = j[:, :k]
+        orow = torch.where(j < k, orow.gather(1, j.clamp(max=k - 1)),
+                           b * rows + j - k)
+        ov = v[:, :k].contiguous()
+
+    step_ms = {"append": [], "fallback": []}
+    t0 = time.perf_counter()
+    for b in range(n_batches):
+        args = batch(b)
+        before = counts.get("fallback", 0)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        ss.scan_step_compact(state, *args, yp, ysum, **kw)
+        torch.cuda.synchronize()
+        step_ms["fallback" if counts.get("fallback", 0) > before
+                else "append"].append(1e3 * (time.perf_counter() - t_step))
+        oracle(b, *args[:2])
+    prof_args = [batch(b) for b in range(n_batches, n_batches + n_prof)]
+    before = dict(counts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_prof = time.perf_counter()
+        for args in prof_args:
+            ss.scan_step_compact(state, *args, yp, ysum, **kw)
+        torch.cuda.synchronize()
+        wall_prof = 1e3 * (time.perf_counter() - t_prof)
+    prof_kinds = {a: counts.get(a, 0) - before.get(a, 0)
+                  for a in ("narrow", "wide", "fallback", "flush")}
+    for b, args in enumerate(prof_args, start=n_batches):
+        oracle(b, *args[:2])
+    final = ss.flush_buffered(state)
+    got_rows = topk.decode_rows(final.row_lo.cpu().numpy(),
+                                final.row_hi.cpu().numpy())
+    log(f"stream: {n_batches + n_prof} batches of {rows} rows, N={n} P={p} "
+        f"k={k} in {time.perf_counter() - t0:.1f} s; branches {counts}")
+    for kind, ms in step_ms.items():
+        if ms:
+            log(f"stream: {kind} step ms median {statistics.median(ms):.2f} "
+                f"over {len(ms)} steps (first {ms[0]:.2f}, last {ms[-1]:.2f};"
+                f" each step synchronized at its end)")
+    busy, top = device_busy(prof)
+    log(f"stream: profiled {n_prof} steps {prof_kinds}: wall "
+        f"{wall_prof:.2f} ms, device busy {busy:.2f} ms ("
+        + (f"idle {100 * (1 - busy / wall_prof):.1f} %); top kernels "
+           + ", ".join(f"{nm[:48]} {t:.3f} ms" for nm, t in top)
+           if busy > 0 else "no device time in the trace: not measured)"))
+    need(counts.get("narrow", 0) + counts.get("wide", 0) >= 10,
+         f"the append branch ran only {counts} times")
+    need(counts.get("fallback", 0) >= 1, f"no fallback step: {counts}")
+    need(torch.equal(final.scores, ov),
+         "stream: final scores differ from the plain running top-k")
+    need(np.array_equal(got_rows, orow.cpu().numpy()),
+         "stream: final rows differ from the plain running top-k")
+    log(f"stream: final top-{k} of all {p} columns equal the plain running "
+        f"top-k (scores and rows)")
+
+
+# ---------------------------------------------------------------- phase 5
+
 def phase_cli(workdir, devices=("cuda", "cpu")):
-    from kmersgwas_tpu.core import formats
     base = os.path.join(workdir, "small")
     n = 200
     names, _ = write_table(base, n, 20_000, 31, seed=3)
     y = dyadic(np.random.default_rng(4), (n, 3))
     pheno = os.path.join(workdir, "small.pheno")
-    formats.write_phenotypes(pheno, formats.PhenotypeTable(
-        names=["a", "b", "c"], accessions=names, values=y.astype(np.float64)))
+    write_phenotypes(pheno, ["a", "b", "c"], names, y)
     outs = {}
     for i, dev in enumerate(devices):
         out = os.path.join(workdir, f"cli_{i}_{dev}")
@@ -418,13 +560,7 @@ def phase_cli(workdir, devices=("cuda", "cpu")):
 
 # ---------------------------------------------------------------- main
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="env,kernels,main,cli")
-    ap.add_argument("--quick", action="store_true",
-                    help="kernels at small shapes only")
-    a = ap.parse_args(argv)
-    phases = a.phases.split(",")
+def main():
     try:
         import torch
     except ImportError:
@@ -446,10 +582,10 @@ def main(argv=None):
     workdir = tempfile.mkdtemp(prefix="smoke_", dir=build)
     try:
         phase_env()
-        kres = phase_kernels(a.quick) if "kernels" in phases else None
-        mres = phase_main(workdir) if "main" in phases else None
-        if "cli" in phases:
-            phase_cli(workdir)
+        kres = phase_kernels()
+        mres = phase_main(workdir)
+        phase_stream()
+        phase_cli(workdir)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -458,8 +594,6 @@ def main(argv=None):
     if "jax" in sys.modules:
         print("FAIL: jax was imported", file=sys.stderr)
         return 1
-    kres = kres or dict(err1=None, err2=None, times=(None,) * 4)
-    mres = mres or dict(k1=None, k2=None)
     t = kres["times"]
     log(json.dumps({"kernels": [
         {"name": "score_topw", "route": "cuda", "source": TOPW_SOURCE,

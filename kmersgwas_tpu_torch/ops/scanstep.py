@@ -13,10 +13,11 @@ score displaces, and the earliest row wins among equals (the concatenation
 order state < buffer < batch, then a stable sort).
 
 Each `lax.cond` of the reference is a host branch here, decided from
-device flags that one small device-to-host copy per step brings back. The
-state is a mutable object and is updated IN PLACE (the buffer writes and
-the flushes replace or overwrite its tensors); callers that need an old
-state copy it first.
+device flags that one small device-to-host copy per step brings back; a
+fallback step makes one more, for the exact merge's guards, which depend
+on the fallback's scores. The state is a mutable object and is updated IN
+PLACE (the buffer writes and the flushes replace or overwrite its
+tensors); callers that need an old state copy it first.
 """
 from __future__ import annotations
 
@@ -76,32 +77,39 @@ def _flush_merge(scores, s_lo, s_hi, buf_v, buf_lo, buf_hi, sc, bmax,
     """Exact wide merge of (state + buffer + this batch's scores) -> new
     (scores, row_lo, row_hi) (port of the reference's `_flush_merge`).
 
-    Three extraction tiers, each guarded by an exactness check (the
-    post-merge k-th strictly beats everything the extraction left behind):
-    cand_k wide, then max(4*cand_k, 8192) wide, then a full exact blocked
-    top-k. Each guard is one host sync."""
+    Three extraction tiers: cand_k wide, max(4*cand_k, 8192) wide, and a
+    full exact blocked top-k. A tier is exact for a column when the
+    post-merge k-th strictly beats everything its extraction left behind.
+    Both bmax tiers run and each column takes the narrower exact one; the
+    columns neither covers, known from ONE device-to-host copy of the
+    guards, take the full top-k."""
     k = scores.shape[1]
     r = sc.shape[1]
     last = row_lo.shape[0] - 1
 
-    def merge_with(wv, wi):
+    def merge_with(wv, wi, c=slice(None)):
         wi = wi.clamp(max=last)       # -inf pad lanes past R never survive
-        return _top_merge([scores, buf_v, wv], [s_lo, buf_lo, row_lo[wi]],
-                          [s_hi, buf_hi, row_hi[wi]], k)
+        return _top_merge([scores[c], buf_v[c], wv],
+                          [s_lo[c], buf_lo[c], row_lo[wi]],
+                          [s_hi[c], buf_hi[c], row_hi[wi]], k)
 
-    def tier(width):
+    out = done = None
+    for width in sorted({min(cand_k, r), min(max(4 * cand_k, 8192), r)}):
         wv, wi, w_exact = topk_ops.top_k_from_bmax(sc, bmax, width)
-        out = merge_with(wv, wi)
-        exact = width >= r or bool(
-            (w_exact & (out[0][:, -1] > wv[:, -1]).all()).item())
-        return exact, out
-
-    exact, out = tier(min(cand_k, r))
-    if not exact:
-        exact, out = tier(min(max(4 * cand_k, 8192), r))
-    if not exact:
-        fv, fi = topk_ops.blocked_top_k(sc, k, block=block)
-        out = merge_with(fv, fi)
+        m = merge_with(wv, wi)
+        ok = w_exact & (m[0][:, -1] > wv[:, -1]) if width < r else w_exact
+        if out is None:
+            out, done = m, ok
+        else:                  # columns the narrower tier missed take this
+            take = (ok & ~done)[:, None]
+            out = tuple(torch.where(take, b, a) for a, b in zip(out, m))
+            done = done | ok
+    rest = torch.nonzero(~done.cpu()).flatten()       # the merge's one sync
+    if len(rest):
+        c = rest.to(sc.device)
+        fv, fi = topk_ops.blocked_top_k(sc[c], k, block=block)
+        for a, b in zip(out, merge_with(fv, fi, c)):
+            a[c] = b
     return out
 
 
@@ -181,21 +189,31 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
         _flush_state_only(state)
         _count(counts, "flush")
 
-    if single and not qual[0]:
-        # hot batch: recompute full scores and run the exact wide merge;
-        # the merge consumes the whole buffer
+    fall = [gr for qg, gr in zip(qual, groups) if not qg]
+    if fall:
+        # hot groups: recompute their columns' full scores (one launch for
+        # all of them; columns are independent) and run the exact wide
+        # merge of state + buffer + batch; their pending candidates are
+        # consumed, so their buffer rows are cleared
+        cols = torch.cat([torch.arange(g0, g1) for g0, g1 in fall]).to(
+            packed.device)
         sc, bmax = score_ops.score_batch_t_bmax(
-            packed, popcnt, y_padded, y_sum, n_used=n_used,
+            packed, popcnt, y_padded[:, cols], y_sum[cols], n_used=n_used,
             min_count=min_count, block=block, precision=precision)
-        state.scores, state.row_lo, state.row_hi = _flush_merge(
-            state.scores, state.row_lo, state.row_hi, state.buf_v,
-            state.buf_lo, state.buf_hi, sc, bmax, row_lo, row_hi,
-            min(cand_k, sc.shape[1]), block)
-        _clear_buffer(state)
-        state.buf_n = 0
-        state.thresh = state.scores[:, -1].clone()
-        _count(counts, "fallback")
-        return state
+        m_v, m_lo, m_hi = _flush_merge(
+            state.scores[cols], state.row_lo[cols], state.row_hi[cols],
+            state.buf_v[cols], state.buf_lo[cols], state.buf_hi[cols],
+            sc, bmax, row_lo, row_hi, min(cand_k, sc.shape[1]), block)
+        del sc, bmax
+        state.scores[cols] = m_v
+        state.row_lo[cols] = m_lo
+        state.row_hi[cols] = m_hi
+        _clear_buffer(state, cols)
+        state.thresh[cols] = m_v[:, -1]
+        if single:              # the merge consumed the whole buffer
+            state.buf_n = 0
+            _count(counts, "fallback")
+            return state
 
     n0 = state.buf_n
     for qg, (g0, g1) in zip(qual, groups):
@@ -204,22 +222,6 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
             state.buf_v[g0:g1, n0:n0 + incoming] = v[g0:g1, :incoming]
             state.buf_lo[g0:g1, n0:n0 + incoming] = row_lo[gi]
             state.buf_hi[g0:g1, n0:n0 + incoming] = row_hi[gi]
-            continue
-        # recompute only this group's columns, merge state + buffer + batch
-        # for the group, and clear the group's buffer rows (its pending
-        # candidates were consumed)
-        sc, bmax = score_ops.score_batch_t_bmax(
-            packed, popcnt, y_padded[:, g0:g1], y_sum[g0:g1], n_used=n_used,
-            min_count=min_count, block=block, precision=precision)
-        m_v, m_lo, m_hi = _flush_merge(
-            state.scores[g0:g1], state.row_lo[g0:g1], state.row_hi[g0:g1],
-            state.buf_v[g0:g1], state.buf_lo[g0:g1], state.buf_hi[g0:g1],
-            sc, bmax, row_lo, row_hi, min(cand_k, sc.shape[1]), block)
-        state.scores[g0:g1] = m_v
-        state.row_lo[g0:g1] = m_lo
-        state.row_hi[g0:g1] = m_hi
-        _clear_buffer(state, slice(g0, g1))
-        state.thresh[g0:g1] = m_v[:, -1]
     state.buf_n = n0 + incoming
     _count(counts, "narrow" if all(qual) and narrow
            else "wide" if all(qual) else "fallback")

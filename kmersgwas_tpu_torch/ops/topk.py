@@ -92,11 +92,11 @@ def top_k_from_bmax(sc: torch.Tensor, bmax: torch.Tensor, k: int):
     holds lanes [b*block, (b+1)*block) — the strided layout there exists
     only for Mosaic.
 
-    Returns (values, indices, exact): `exact` (a 0-d bool tensor, on the
-    device) is True iff the k-th kept value STRICTLY exceeds everything
-    excluded (the (k+1)-th gathered candidate and the (k+1)-th block max);
-    the kept pairs come back in (value desc, index asc) order. Callers must
-    take an exact path when `exact` is False.
+    Returns (values, indices, exact): `exact` ((P,) bool, on the device)
+    is True for a column iff its k-th kept value STRICTLY exceeds
+    everything excluded (the (k+1)-th gathered candidate and the (k+1)-th
+    block max); the kept pairs come back in (value desc, index asc) order.
+    Callers must take an exact path for the columns where `exact` is False.
 
     sc: (P, R), bmax: (P, R/block)."""
     p, r = sc.shape
@@ -106,7 +106,7 @@ def top_k_from_bmax(sc: torch.Tensor, bmax: torch.Tensor, k: int):
     k = min(k, r)
     if nbt <= k + 1 or k + 1 >= r:
         v, i = top_k(sc, k)
-        return v, i, torch.ones((), dtype=torch.bool, device=sc.device)
+        return v, i, torch.ones(p, dtype=torch.bool, device=sc.device)
     _, bi = blocked_top_k(bmax, k + 1, block=16)          # (P, k+1) blocks
     bsel, bnext = bi[:, :k], bi[:, k]
     m_next = bmax.gather(1, bnext[:, None])[:, 0]         # (P,)
@@ -117,7 +117,7 @@ def top_k_from_bmax(sc: torch.Tensor, bmax: torch.Tensor, k: int):
     vv, jj = top_k(cand, k + 1)                           # +1: boundary probe
     v, j = vv[:, :k], jj[:, :k]
     idx = cand_idx.gather(1, j)
-    exact = torch.all((v[:, -1] > vv[:, k]) & (v[:, -1] > m_next))
+    exact = (v[:, -1] > vv[:, k]) & (v[:, -1] > m_next)
     v, idx = sort_desc_index_asc(v, idx)
     return v, idx, exact
 

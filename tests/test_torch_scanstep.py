@@ -104,6 +104,48 @@ def test_col_group_stream_matches_jax():
     assert counts.get("narrow", 0) + counts.get("wide", 0) >= 5, counts
 
 
+def test_flush_merge_picks_a_tier_per_column(monkeypatch):
+    """The exact wide merge equals a stable sort of (state, buffer, whole
+    batch) when column 0 is exact at the cand_k tier, column 1 only at the
+    8192 tier and column 2 (empty state, tied scores) at neither, so only
+    column 2 takes the full top-k."""
+    rng = np.random.default_rng(5)
+    k, cap, r, cand_k = 9000, 256, 32768, 1000
+    perm = lambda n: rng.permutation(n).astype(np.float32)   # noqa: E731
+    state_v = np.stack([100 + perm(k) / k * 100, perm(k) / k * 1000,
+                        np.full(k, -np.inf, np.float32)])
+    sc = np.stack([perm(r) / r * 100, perm(r) / r * 1000,
+                   np.round(rng.normal(size=r) * 4).astype(np.float32)])
+    buf_v = np.round(rng.normal(size=(3, cap)) * 4).astype(np.float32) + 50
+    state_v = -np.sort(-state_v, axis=1)
+    ids = lambda n, base: np.tile(np.arange(base, base + n, dtype=np.int32),
+                                  (3, 1))                     # noqa: E731
+    s_lo, b_lo, row_lo = ids(k, 0), ids(cap, k), ids(r, k + cap)[0]
+    zeros = lambda a: np.zeros_like(a)                          # noqa: E731
+    t = torch.from_numpy
+    full_calls = []
+    blocked = topk.blocked_top_k
+
+    def spy(x, kk, block=16):
+        if x.shape[1] == r:
+            full_calls.append(x.shape[0])
+        return blocked(x, kk, block)
+    monkeypatch.setattr(topk, "blocked_top_k", spy)
+    got = scanstep._flush_merge(
+        t(state_v), t(s_lo), t(zeros(s_lo)), t(buf_v), t(b_lo),
+        t(zeros(b_lo)), t(sc), t(sc).view(3, -1, 16).amax(-1), t(row_lo),
+        t(zeros(row_lo)), cand_k)
+    assert full_calls == [1]
+    cat_v = np.concatenate([state_v, buf_v, sc], axis=1)
+    cat_lo = np.concatenate([s_lo, b_lo, np.tile(row_lo, (3, 1))], axis=1)
+    o = np.argsort(-cat_v, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  np.take_along_axis(cat_v, o, 1))
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  np.take_along_axis(cat_lo, o, 1))
+    assert not got[2].any()
+
+
 @pytest.mark.parametrize("split", [10, 20])
 def test_jax_midstream_state_continues_in_port(split):
     """A JAX BufferedTopKState taken mid-stream (its cand_w step on the
