@@ -11,16 +11,24 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. kernels against their plain PyTorch versions on the card, at a small
      shape and at one flagship batch (R=2,097,152, N=1008, P=101, W=256):
      bit-equal on dyadic phenotypes, within a stated tolerance on Gaussian
-     ones at precision "highest", with times;
+     ones at precision "highest", with times; K3 (score_tilemax) also on
+     batches with runs of equal rows inside tiles (tied 2nd/3rd values);
   3. the main path, `associate` on the dtable route at its real shape
      (N=1008, P=101, top-10001, 2,000,000-row batches, ~4.2M rows), held
      against a numpy f64 brute force;
-  4. the scan step's settled regime at the same shape: 85 device-made
-     2M-row batches through `scan_step_compact` (the append branch engages
-     once the threshold settles), held bit for bit against a plain running
-     top-k, with step times and a profiled window of settled steps;
+  4. the scan step's settled regime at the same shape: device-made 2M-row
+     batches through `scan_step_compact` (the append branch engages once
+     the threshold settles), held bit for bit against a plain running
+     top-k, with step times and a profiled window of settled steps; 85
+     batches in `cand_w` mode (the single-process scan's step, K1), 245 in
+     `cand_c` mode with the multi-process driver's parameters (K3);
   5. the CLI, `associate --device cuda` against `--device cpu`: output
-     files byte-identical.
+     files byte-identical;
+  6. the multi-process scan's path, `run_distributed_scan` in one process
+     on phase 3's table (N=1008, P=101, top-10001, 2M-row batches): the
+     same top-k as `associate` in all 101 columns, K3 on every batch;
+  7. `associate-mp` in 2 processes sharing the card (gloo) against 1
+     process: output files byte-identical.
 The script writes its inputs itself and imports nothing of the JAX
 package. The line before the last is the kernels' JSON record; the last
 line is {"ok": true, "device": {...}}. Without CUDA the script fails at
@@ -41,8 +49,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOPW_SOURCE = "kmersgwas_tpu_torch/csrc/score_topw.cu"
 BMAX_SOURCE = "kmersgwas_tpu_torch/csrc/score_bmax.cu"
+TILEMAX_SOURCE = "kmersgwas_tpu_torch/csrc/score_tilemax.cu"
 TOPW_REPLACES = "kmersgwas_tpu/ops/score.py:448"
 BMAX_REPLACES = "kmersgwas_tpu/ops/score.py:178"
+TILEMAX_REPLACES = "kmersgwas_tpu/ops/score.py:269"
 # Gaussian phenotypes at precision "highest": the kernel and cuBLAS sum
 # ~500 f32 terms in different orders, and the score's numerator N*yigi -
 # n1*ysum cancels, so an error in r of a few f32 ulps of N*yigi moves a
@@ -155,15 +165,93 @@ def make_batch(rows, n, p, seed, pad_rows, gaussian):
     return packed, popcnt, yp, ysum
 
 
+def tie_runs(packed):
+    """The batch with runs of 4 equal rows over its first half: tiles whose
+    2nd and 3rd values tie (n2 = 3, n3 = 2 at their top)."""
+    from kmersgwas_tpu_torch.ops import bitplanes
+    t = packed.clone()
+    v = t.view(-1, 4, t.shape[1])
+    v[:v.shape[0] // 2, 1:] = v[:v.shape[0] // 2, :1]
+    return t, bitplanes.popcount_rows(t)
+
+
+def check_tilemax_at(packed, yp, ysum, gaussian, prec, kw, label, timing):
+    """K3 against its plain version on the tie-run variant of a batch, at
+    thresholds -inf, a high quantile and +inf. Dyadic phenotypes: all nine
+    planes bit-equal. Gaussian ones: the planes equal the plain selection
+    over K2's scores (K3's arithmetic) bit for bit; the values are within
+    the RTOL bound of the plain version's, and lanes and counts equal it
+    wherever the values (for cnt: every lane's side of thresh) agree.
+    -> (max abs err of the values, (kernel ms, plain ms) or None)."""
+    import torch
+    from kmersgwas_tpu_torch.ops import score
+    packed, pc = tie_runs(packed)
+    p = yp.shape[1]
+    ks, _ = score.score_batch_t_bmax(packed, pc, yp, ysum, precision=prec,
+                                     **kw)
+    ps = score.scores_t_plain(packed, pc, yp, ysum, precision=prec, **kw)
+    scale = col_scale(ps)
+    kth = max(1, min(100, packed.shape[0] // 64))
+    q = torch.topk(ps, kth, dim=1).values[:, -1].contiguous()
+    err, times = 0.0, None
+    for th_name, th in (("-inf", torch.full((p,), float("-inf"),
+                                            device="cuda")),
+                        ("quantile", q),
+                        ("+inf", torch.full((p,), float("inf"),
+                                            device="cuda"))):
+        args = (packed, pc, yp, ysum, th)
+        tkw = dict(tile_rows=128, precision=prec, **kw)
+        got = score.score_batch_t_tilemax(*args, **tkw)
+        torch.cuda.synchronize()
+        want = score.tilemax_plain(*args, **tkw)
+        tag = f"{label}: K3 ({'gauss' if gaussian else 'dyadic'} {prec}, " \
+              f"th {th_name})"
+        need(bool((got[6] > 1).any()) and bool((got[7] > 1).any()),
+             f"{tag}: no tile with tied 2nd and 3rd values")
+        if not gaussian:
+            need(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"{tag}: planes != plain")
+            continue
+        same = score.tilemax_from_scores(ks, th, 128)
+        need(all(torch.equal(a, b) for a, b in zip(got, same)),
+             f"{tag}: planes != the plain selection over K2's scores")
+        eq = []
+        for i in (0, 2, 4):
+            fin = torch.isfinite(want[i])
+            need(torch.equal(torch.isfinite(got[i]), fin),
+                 f"{tag}: -inf entries differ")
+            d = torch.where(fin, (got[i] - want[i]).abs(), 0.0)
+            err = max(err, float(d.max()))
+            need(bool((d <= RTOL * (torch.where(fin, want[i].abs(), 0.0)
+                                    + scale)).all()),
+                 f"{tag}: values off by {float(d.max())}")
+            eq.append((got[i] == want[i]) | ~fin)
+        m1, m2, m3 = eq[0], eq[0] & eq[1], eq[0] & eq[1] & eq[2]
+        t = th[:, None]
+        agree = ~((ks > t) != (ps > t)).view(p, -1, 128).any(dim=-1)
+        for i, m in ((1, m1), (3, m2), (6, m2), (5, m3), (7, m3),
+                     (8, agree)):
+            need(torch.equal(got[i][m], want[i][m]),
+                 f"{tag}: plane {i} differs where the values agree")
+    if timing:
+        args = (packed, pc, yp, ysum, q)
+        tkw = dict(tile_rows=128, precision=prec, **kw)
+        times = (cuda_ms(lambda: score.score_batch_t_tilemax(*args, **tkw)),
+                 cuda_ms(lambda: score.tilemax_plain(*args, **tkw)))
+    log(f"  {label} {'gauss' if gaussian else 'dyadic'} {prec:8s} K3: nine "
+        f"planes checked at 3 thresholds")
+    return err, times
+
+
 def check_kernels_at(rows, n, p, w, seed, label, timing=False):
-    """K1 and K2 against their plain versions at one shape. Returns
-    (max abs err K1, max abs err K2, times or None)."""
+    """K1, K2 and K3 against their plain versions at one shape. Returns
+    (max abs err K1, K2, K3, times or None)."""
     import torch
     from kmersgwas_tpu_torch.ops import score
     mc = 5
     kw = dict(n_used=n, min_count=mc)
-    err1 = err2 = 0.0
-    times = None
+    err1 = err2 = err3 = 0.0
+    times = t3 = None
     for gaussian, prec in ((False, "default"), (False, "highest"),
                            (True, "highest")):
         packed, pc, yp, ysum = make_batch(rows, n, p, seed, rows // 8 + 37,
@@ -238,28 +326,35 @@ def check_kernels_at(rows, n, p, w, seed, label, timing=False):
                 f"ok_eff {int(ok_eff.sum())}")
         del ks, kb, ps, pb
         torch.cuda.empty_cache()
-    return err1, err2, times
+        e3, t = check_tilemax_at(packed, yp, ysum, gaussian, prec, kw, label,
+                                 timing and not gaussian
+                                 and prec == "default")
+        err3 = max(err3, e3)
+        t3 = t or t3
+        torch.cuda.empty_cache()
+    return err1, err2, err3, (times + t3 if times else None)
 
 
 def phase_kernels():
     """-> the largest errors measured over every shape (Gaussian phenotypes
     at "highest"; dyadic ones are checked bit-equal) and the flagship
     times."""
-    e1 = e2 = 0.0
+    e1 = e2 = e3 = 0.0
     for rows, n, p, w in ((1024, 100, 3, 16), (1024, 100, 70, 256),
                           (4096, 1008, 101, 256)):
-        a, b, _ = check_kernels_at(rows, n, p, w, seed=rows + p,
-                                   label=f"R={rows} N={n} P={p} W={w}")
-        e1, e2 = max(e1, a), max(e2, b)
-    a, b, times = check_kernels_at(2_097_152, 1008, 101, 256, seed=7,
-                                   label="flagship", timing=True)
-    e1, e2 = max(e1, a), max(e2, b)
+        a, b, c, _ = check_kernels_at(rows, n, p, w, seed=rows + p,
+                                      label=f"R={rows} N={n} P={p} W={w}")
+        e1, e2, e3 = max(e1, a), max(e2, b), max(e3, c)
+    a, b, c, times = check_kernels_at(2_097_152, 1008, 101, 256, seed=7,
+                                      label="flagship", timing=True)
+    e1, e2, e3 = max(e1, a), max(e2, b), max(e3, c)
     log(f"flagship K1 score_topw: kernel {times[0]:.3f} ms, plain "
         f"{times[1]:.3f} ms; K2 score_bmax: kernel {times[2]:.3f} ms, plain "
-        f"{times[3]:.3f} ms (median CUDA-event times)")
+        f"{times[3]:.3f} ms; K3 score_tilemax: kernel {times[4]:.3f} ms, "
+        f"plain {times[5]:.3f} ms (median CUDA-event times)")
     log(f"max abs err over all shapes (gaussian, highest): K1 {e1:.3g}, "
-        f"K2 {e2:.3g}")
-    return dict(err1=e1, err2=e2, times=times)
+        f"K2 {e2:.3g}, K3 {e3:.3g}")
+    return dict(err1=e1, err2=e2, err3=e3, times=times)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -273,9 +368,10 @@ TABLE_HEADER = struct.Struct("<IQI")
 TABLE_MAGIC = 0xDDCCBBAA
 
 
-def write_table(base, n, n_rows, kmer_len, seed):
+def write_table(base, n, n_rows, kmer_len, seed, kmer_step=97):
     """Synthetic .table and .names (the layout bench.py:34-64 writes, with
-    every file bit past n zero) -> (names, popcount of every row)."""
+    every file bit past n zero; k-mer codes row * kmer_step) -> (names,
+    popcount of every row)."""
     names = [f"acc{i}" for i in range(n)]
     wf = (n + 63) // 64
     tail_mask = np.uint64((1 << (n - 64 * (wf - 1))) - 1) if n % 64 \
@@ -288,7 +384,8 @@ def write_table(base, n, n_rows, kmer_len, seed):
         for s in range(0, n_rows, chunk):
             m = min(chunk, n_rows - s)
             rows = np.empty((m, 1 + wf), dtype="<u8")
-            rows[:, 0] = np.arange(s, s + m, dtype=np.uint64) * np.uint64(97)
+            rows[:, 0] = np.arange(s, s + m, dtype=np.uint64) * np.uint64(
+                kmer_step)
             rows[:, 1:] = rng.integers(0, 2 ** 64 - 1, size=(m, wf),
                                        dtype=np.uint64, endpoint=True)
             rows[:, wf] &= tail_mask
@@ -349,7 +446,10 @@ def phase_main(workdir, n_rows=4_200_000, p=101, k=10001, batch=2_000_000,
     cuda = device == "cuda"
     base = os.path.join(workdir, "pop")
     t0 = time.perf_counter()
-    names, pcs = write_table(base, n, n_rows, kmer_len, seed=1)
+    # k-mer codes spread over the whole k-mer space, so that phase 7's
+    # processes own equal spans
+    names, pcs = write_table(base, n, n_rows, kmer_len, seed=1,
+                             kmer_step=(1 << 2 * kmer_len) // n_rows)
     min_count = scan.effective_min_count(n, 0.05, 5)
     keep = (pcs >= min_count) & (pcs <= n - min_count)
     dtable = base + ".dtable"
@@ -405,14 +505,15 @@ def phase_main(workdir, n_rows=4_200_000, p=101, k=10001, batch=2_000_000,
              f"column {j}: certified scores differ from the f64 oracle")
     log(f"main: all {p} columns certified; columns {list(check_cols)} equal "
         f"the f64 oracle's top-{k} (oracle {time.perf_counter() - t0:.1f} s)")
-    return dict(k1=k1, k2=k2)
+    return dict(k1=k1, k2=k2, base=base, dtable=dtable, names=names, y=y,
+                cols=cols, n_tested=int(keep.sum()), kmer_len=kmer_len)
 
 
 # ---------------------------------------------------------------- phase 4
 
 def device_busy(prof):
-    """(summed device time of every kernel and copy in ms, the three
-    largest (name, ms)) of a torch.profiler run."""
+    """(summed device time of every kernel and copy in ms, {name: ms}) of a
+    torch.profiler run."""
     per = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
@@ -420,21 +521,26 @@ def device_busy(prof):
             t = e.self_cuda_time_total
         if t > 0:
             per[e.key] = per.get(e.key, 0.0) + t / 1e3
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
-    return sum(per.values()), top
+    return sum(per.values()), per
 
 
-def phase_stream(n_batches=80, n_prof=5, rows=2_000_000, n=1008, p=101,
-                 k=10001 + 1024):
+def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
+                 n=1008, p=101):
     """The scan step's settled regime at the main path's shape (N=1008,
-    P=101, top-10001 + the certify band, 2,000,000-row batches): device-
-    made batches through scan_step_compact with the scan's parameters, so
-    K1 runs on every batch, K2 on the threshold ramp's fallbacks and the
-    append branch once the threshold settles. Dyadic phenotypes at
-    precision "default" make kernel and plain scores bit-equal, so the
-    final top-k must equal, scores and rows, a plain running top-k (plain
-    scores, one stable sort per batch, earlier rows first on ties). The
-    last n_prof steps run under torch.profiler."""
+    P=101, 2,000,000-row batches): device-made batches through
+    scan_step_compact, so the candidate kernel runs on every batch, K2 on
+    the threshold ramp's fallbacks and the append branch once the
+    threshold settles. mode "cand_w": the single-process scan's parameters
+    (top-10001 + the certify band, K1); "cand_c": the multi-process
+    driver's (top-10001, cand_c 256, cand_c2 64, so 384 candidates per
+    column, a 6144-slot buffer, q 64; K3). The `cand_c` guard also needs
+    every tile holding two lanes above the threshold to rank among the 64
+    hottest, so it settles later: with ~k/b lanes per column above the
+    threshold at batch b, after ~170-200 batches. Dyadic phenotypes at
+    precision "default" make kernel and plain scores bit-equal, so the final top-k
+    must equal, scores and rows, a plain running top-k (plain scores, one
+    stable sort per batch, earlier rows first on ties). The last n_prof
+    steps run under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from kmersgwas_tpu_torch.ops import scanstep as ss
@@ -443,11 +549,18 @@ def phase_stream(n_batches=80, n_prof=5, rows=2_000_000, n=1008, p=101,
     min_count = scan.effective_min_count(n, 0.05, 5)
     y = dyadic(np.random.default_rng(11), (n, p))
     yp, ysum = score.prepare_phenotypes(y, -(-n // 128) * 128, "cuda")
-    state = ss.init_buffered_state(p, k, scan.BUF_CAP, "cuda")
     counts = {}
-    kw = dict(n_used=n, min_count=min_count, cand_k=min(max(256, k // 8), k),
-              tile_rows=scan.TILE_ROWS, cand_w=scan.CAND_W,
-              cand_q=scan.CAND_Q, precision="default", counts=counts)
+    if mode == "cand_w":
+        k, cap, kernel = 10001 + scan.CERTIFY_BAND, scan.BUF_CAP, "topw"
+        kw = dict(cand_k=min(max(256, k // 8), k), cand_w=scan.CAND_W,
+                  cand_q=scan.CAND_Q)
+    else:           # parallel/multihost.run_distributed_scan's formulas
+        k, cap, kernel = 10001, (256 + 2 * 64) * 16, "tilemax"
+        kw = dict(cand_k=min(max(256, k // 8), k, rows), cand_c=256,
+                  cand_c2=64, cand_q=64)
+    state = ss.init_buffered_state(p, k, cap, "cuda")
+    kw.update(n_used=n, min_count=min_count, tile_rows=scan.TILE_ROWS,
+              precision="default", counts=counts)
     ov = torch.full((p, k), float("-inf"), device="cuda")
     orow = torch.zeros((p, k), dtype=torch.int64, device="cuda")
 
@@ -469,6 +582,7 @@ def phase_stream(n_batches=80, n_prof=5, rows=2_000_000, n=1008, p=101,
         ov = v[:, :k].contiguous()
 
     step_ms = {"append": [], "fallback": []}
+    first_append = None
     t0 = time.perf_counter()
     for b in range(n_batches):
         args = batch(b)
@@ -477,8 +591,10 @@ def phase_stream(n_batches=80, n_prof=5, rows=2_000_000, n=1008, p=101,
         t_step = time.perf_counter()
         ss.scan_step_compact(state, *args, yp, ysum, **kw)
         torch.cuda.synchronize()
-        step_ms["fallback" if counts.get("fallback", 0) > before
-                else "append"].append(1e3 * (time.perf_counter() - t_step))
+        kind = "fallback" if counts.get("fallback", 0) > before else "append"
+        step_ms[kind].append(1e3 * (time.perf_counter() - t_step))
+        if kind == "append" and first_append is None:
+            first_append = b
         oracle(b, *args[:2])
     prof_args = [batch(b) for b in range(n_batches, n_batches + n_prof)]
     before = dict(counts)
@@ -497,27 +613,32 @@ def phase_stream(n_batches=80, n_prof=5, rows=2_000_000, n=1008, p=101,
     final = ss.flush_buffered(state)
     got_rows = topk.decode_rows(final.row_lo.cpu().numpy(),
                                 final.row_hi.cpu().numpy())
-    log(f"stream: {n_batches + n_prof} batches of {rows} rows, N={n} P={p} "
-        f"k={k} in {time.perf_counter() - t0:.1f} s; branches {counts}")
+    tag = f"stream {mode}"
+    log(f"{tag}: {n_batches + n_prof} batches of {rows} rows, N={n} P={p} "
+        f"k={k} in {time.perf_counter() - t0:.1f} s; branches {counts}; "
+        f"first append at batch {first_append}")
     for kind, ms in step_ms.items():
         if ms:
-            log(f"stream: {kind} step ms median {statistics.median(ms):.2f} "
+            log(f"{tag}: {kind} step ms median {statistics.median(ms):.2f} "
                 f"over {len(ms)} steps (first {ms[0]:.2f}, last {ms[-1]:.2f};"
                 f" each step synchronized at its end)")
-    busy, top = device_busy(prof)
-    log(f"stream: profiled {n_prof} steps {prof_kinds}: wall "
+    busy, per = device_busy(prof)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    mine = sum(t for nm, t in per.items() if kernel in nm)
+    log(f"{tag}: profiled {n_prof} steps {prof_kinds}: wall "
         f"{wall_prof:.2f} ms, device busy {busy:.2f} ms ("
-        + (f"idle {100 * (1 - busy / wall_prof):.1f} %); top kernels "
-           + ", ".join(f"{nm[:48]} {t:.3f} ms" for nm, t in top)
+        + (f"idle {100 * (1 - busy / wall_prof):.1f} %); {kernel} kernels "
+           f"{mine:.3f} ms = {100 * mine / busy:.1f} % of device time; top "
+           "kernels " + ", ".join(f"{nm[:48]} {t:.3f} ms" for nm, t in top)
            if busy > 0 else "no device time in the trace: not measured)"))
     need(counts.get("narrow", 0) + counts.get("wide", 0) >= 10,
-         f"the append branch ran only {counts} times")
-    need(counts.get("fallback", 0) >= 1, f"no fallback step: {counts}")
+         f"{tag}: the append branch ran only {counts} times")
+    need(counts.get("fallback", 0) >= 1, f"{tag}: no fallback step: {counts}")
     need(torch.equal(final.scores, ov),
-         "stream: final scores differ from the plain running top-k")
+         f"{tag}: final scores differ from the plain running top-k")
     need(np.array_equal(got_rows, orow.cpu().numpy()),
-         "stream: final rows differ from the plain running top-k")
-    log(f"stream: final top-{k} of all {p} columns equal the plain running "
+         f"{tag}: final rows differ from the plain running top-k")
+    log(f"{tag}: final top-{k} of all {p} columns equal the plain running "
         f"top-k (scores and rows)")
 
 
@@ -558,6 +679,127 @@ def phase_cli(workdir, devices=("cuda", "cpu")):
         f"--device {devices[0]} and --device {devices[1]}")
 
 
+# ---------------------------------------------------------------- phase 6
+
+def phase_mp(main, batch=2_000_000, device="cuda"):
+    """The multi-process scan's path in one process, on phase 3's table and
+    dtable (N=1008, P=101, top-10001, 2,000,000-row batches): K3 on every
+    batch, K2 on the fallbacks, and the same top-k, rows and f32 scores, as
+    `associate` in all 101 columns (both are exact top-k under (score
+    desc, row asc) over the same device arithmetic). device="cpu" and a
+    smaller table rehearse the phase without a card."""
+    import torch
+    from kmersgwas_tpu_torch.ops import score
+    from kmersgwas_tpu_torch.parallel import multihost
+    from kmersgwas_tpu_torch.pipeline import scan
+    cuda = device == "cuda"
+    k = 10001
+    kw = dict(kmer_len=main["kmer_len"], device=device, n_top=k,
+              batch_size=batch, count_patterns=True,
+              dtable_cache=main["dtable"])
+    args = (main["base"], main["names"], main["y"], main["cols"])
+    marks = []
+    score.score_batch_t_tilemax.launches = 0
+    score.score_batch_t_bmax.launches = 0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    per, n_tested, n_patterns = multihost.run_distributed_scan(
+        *args, progress=lambda r: marks.append(time.perf_counter()), **kw)
+    wall = time.perf_counter() - t0
+    k3 = score.score_batch_t_tilemax.launches
+    k2 = score.score_batch_t_bmax.launches
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    n_batches = -(-main["n_tested"] // batch)
+    step_ms = [round(1e3 * (b - a), 2) for a, b in zip([t0] + marks, marks)]
+    log(f"mp: run_distributed_scan, 1 process: {n_tested} k-mers in "
+        f"{len(marks)} steps, {n_tested / (marks[-1] - t0):,.0f} k-mers/s "
+        f"over the stream (call to last step); step ms {step_ms} (the "
+        f"first includes set-up); wall {wall:.2f} s; K3 score_tilemax "
+        f"launches {k3}, K2 score_bmax launches {k2}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    need(n_tested == main["n_tested"],
+         f"mp: n_tested {n_tested} != MAC-passing rows {main['n_tested']}")
+    need(k3 >= n_batches or not cuda,
+         f"mp: K3 launched {k3} times for {n_batches} batches")
+    need(k2 >= 1 or not cuda, "mp: K2 was never launched")
+    ref = scan.associate(*args, certify_topk=False, progress=lambda r: None,
+                         **kw)
+    need(n_patterns == ref.n_patterns,
+         f"mp: {n_patterns} patterns, associate {ref.n_patterns}")
+    for j, (sc, rw) in enumerate(per):
+        need(np.array_equal(rw, ref.rows[j]) and
+             np.array_equal(sc, ref.scores[j]),
+             f"mp: column {j} differs from associate")
+    log(f"mp: all {len(per)} columns equal associate's top-{k} (rows and "
+        f"scores), {n_patterns} patterns")
+    from kmersgwas_tpu_torch.core import dtable as dt_mod
+    planes = np.asarray(dt_mod.DTableReader(main["dtable"]).planes[:batch])
+    t0 = time.perf_counter()
+    scan._PatternCounter().add(planes)
+    log(f"mp: the host's pattern count of one {len(planes)}-row batch "
+        f"(count_patterns) takes {time.perf_counter() - t0:.2f} s")
+    return dict(k3=k3)
+
+
+# ---------------------------------------------------------------- phase 7
+
+def phase_mp_cli(workdir, main, n_proc=2, device="cuda", batch=2_000_000,
+                 timeout=600):
+    """`associate-mp` in n_proc processes over gloo, all on the one card,
+    against one process: every output file byte-identical."""
+    import socket
+    import torch
+    if device == "cuda":
+        torch.cuda.empty_cache()        # the card is shared with the ranks
+    pheno = os.path.join(workdir, "mp.pheno")
+    write_phenotypes(pheno, main["cols"], main["names"], main["y"])
+    outs = {}
+    for n in (n_proc, 1):
+        out = os.path.join(workdir, f"mp_{n}")
+        os.makedirs(out)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        cmd = [sys.executable, "-m", "kmersgwas_tpu_torch.cli",
+               "associate-mp", "-p", pheno, "-t", main["base"],
+               "-k", str(main["kmer_len"]), "-o", out, "-b", "10001",
+               "--batch_size", str(batch), "--pattern_counter",
+               "--device", device, "--dtable_cache", main["dtable"],
+               "--coordinator", f"127.0.0.1:{port}",
+               "--num_processes", str(n)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--process_id", str(i)], cwd=ROOT,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for i in range(n)]
+        try:
+            logs = [pr.communicate(timeout=timeout)[0] for pr in procs]
+        finally:
+            for pr in procs:            # a failed or hung rank: stop all
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        for i, (pr, text) in enumerate(zip(procs, logs)):
+            need(pr.returncode == 0, f"associate-mp {n} processes: rank {i} "
+                 f"exited {pr.returncode}:\n{text[-3000:]}")
+        log(f"associate-mp --num_processes {n} --device {device}: "
+            f"{time.perf_counter() - t0:.1f} s wall; "
+            + "; ".join(t.strip().splitlines()[-1] for t in logs))
+        outs[n] = {f: open(os.path.join(out, f), "rb").read()
+                   for f in sorted(os.listdir(out))}
+    a, b = outs[n_proc], outs[1]
+    need(sorted(a) == sorted(b), f"associate-mp outputs differ in files")
+    diff = [f for f in a if a[f] != b[f]]
+    need(not diff, f"associate-mp outputs differ: {diff[:5]}")
+    need(sum(f.endswith(".bed") for f in a) == len(main["cols"]),
+         "associate-mp: a bed per column missing")
+    log(f"associate-mp: {len(a)} output files byte-identical between "
+        f"{n_proc} processes sharing the card and 1 process "
+        f"({sum(len(v) for v in a.values()) / 2**20:.1f} MiB)")
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -584,8 +826,11 @@ def main():
         phase_env()
         kres = phase_kernels()
         mres = phase_main(workdir)
-        phase_stream()
+        phase_stream("cand_w")
+        phase_stream("cand_c", n_batches=240)
         phase_cli(workdir)
+        pres = phase_mp(mres)
+        phase_mp_cli(workdir, mres)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -602,6 +847,9 @@ def main():
         {"name": "score_bmax", "route": "cuda", "source": BMAX_SOURCE,
          "replaces": BMAX_REPLACES, "launches": mres["k2"],
          "max_abs_err": kres["err2"], "ms": t[2], "plain_ms": t[3]},
+        {"name": "score_tilemax", "route": "cuda", "source": TILEMAX_SOURCE,
+         "replaces": TILEMAX_REPLACES, "launches": pres["k3"],
+         "max_abs_err": kres["err3"], "ms": t[4], "plain_ms": t[5]},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """CLI dispatcher: `python -m kmersgwas_tpu_torch.cli <command> [...]`.
 
-Port of kmersgwas_tpu/cli/__main__.py; only `associate` is ported so far.
+Port of kmersgwas_tpu/cli/__main__.py; `associate` and `associate-mp` are
+ported so far.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+
+import numpy as np
 
 
 def _add_associate(sub):
@@ -78,12 +81,100 @@ def _add_associate(sub):
     p.set_defaults(func=run)
 
 
+def _add_associate_mp(sub):
+    p = sub.add_parser(
+        "associate-mp",
+        help="multi-PROCESS association scan: run this command once per "
+             "process with a shared coordinator; each process streams only "
+             "its k-mer range of the table (parallel/multihost.py)")
+    p.add_argument("-p", "--phenotype_file", required=True,
+                   help="TRANSFORMED phenotype columns")
+    p.add_argument("-b", "--best", type=int, default=10001)
+    p.add_argument("-t", "--kmers_table", required=True)
+    p.add_argument("-k", "--kmer_len", type=int, required=True)
+    p.add_argument("-o", "--output_dir", required=True)
+    p.add_argument("--base_name", default="pheno")
+    p.add_argument("--batch_size", type=int, default=2_000_000)
+    p.add_argument("--maf", type=float, default=0.05)
+    p.add_argument("--mac", type=int, default=5)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where each process scans (cuda raises without a "
+                        "card; process i takes card i modulo the count)")
+    p.add_argument("--pattern_counter", action="store_true")
+    p.add_argument("--first_phenotype_best", type=int, default=None)
+    p.add_argument("--dtable_cache", default=None,
+                   help="base path for the per-process device-native table "
+                        "cache (<base>.mc<min>.n<n>.p<pid>of<nproc>)")
+    p.add_argument("--score_precision", default="default",
+                   choices=["default", "highest"],
+                   help="score GEMM precision: default = phenotypes rounded "
+                        "to bf16 with f32 sums, highest = f32")
+    p.add_argument("--coordinator", required=True,
+                   help="host:port of process 0")
+    p.add_argument("--num_processes", type=int, required=True)
+    p.add_argument("--process_id", type=int, required=True)
+    p.add_argument("--checkpoint", default=None,
+                   help="per-process checkpoint base (<path>.p<pid>.npz)")
+
+    def run(a):
+        from kmersgwas_tpu.core import formats
+        from kmersgwas_tpu.core.table import KmersTableReader
+        from ..parallel import multihost
+        from ..pipeline import scan as scan_mod
+        multihost.init_distributed(coordinator_address=a.coordinator,
+                                   num_processes=a.num_processes,
+                                   process_id=a.process_id)
+        pheno = formats.read_phenotypes(a.phenotype_file)
+        per_pheno, n_tested, n_patterns = multihost.run_distributed_scan(
+            a.kmers_table, pheno.accessions, pheno.values, pheno.names,
+            kmer_len=a.kmer_len, device=a.device, n_top=a.best, maf=a.maf,
+            mac=a.mac, batch_size=a.batch_size,
+            checkpoint_path=a.checkpoint, count_patterns=a.pattern_counter,
+            first_phenotype_top=a.first_phenotype_best,
+            dtable_cache=a.dtable_cache, score_precision=a.score_precision)
+        if a.process_id == 0:     # every process holds the result: one writer
+            reader = KmersTableReader(a.kmers_table,
+                                      names_to_use=pheno.accessions)
+            all_rows = np.unique(np.concatenate(
+                [rw for _, rw in per_pheno])) if per_pheno else np.empty(0)
+            kmer_of_row, pa_of_row = scan_mod.fetch_rows(
+                reader, all_rows.astype(np.int64))
+            base = f"{a.output_dir}/{a.base_name}"
+            kmers_list, scores_list, rows_list = [], [], []
+            for j in range(len(pheno.names)):
+                sc, rw = per_pheno[j]
+                kk = np.asarray(kmer_of_row.take(rw), np.uint64)
+                kmers_list.append(kk)
+                scores_list.append(np.asarray(sc, np.float64))
+                rows_list.append(np.asarray(rw, np.int64))
+                formats.write_best_kmers_scores(
+                    f"{base}.{j}.best_kmers.scores", kk, sc)
+            result = scan_mod.ScanResult(
+                names=list(pheno.names), scores=scores_list, rows=rows_list,
+                kmers=kmers_list, n_tested=n_tested, pa_rows=pa_of_row)
+            plink_bases = [f"{base}.{j}.{nm}"
+                           for j, nm in enumerate(pheno.names)]
+            scan_mod.export_plink(result, reader.n_used, a.kmer_len,
+                                  plink_bases)
+            for j in range(len(pheno.names)):
+                formats.write_fam(plink_bases[j] + ".fam", pheno.accessions,
+                                  pheno.values[:, j])
+            with open(f"{base}.tested_kmers", "w") as f:
+                f.write(f"{n_tested}\n")
+            if n_patterns is not None:
+                with open(f"{base}.pattern_counter", "w") as f:
+                    f.write(f"{n_patterns}\n")
+        print(f"process {a.process_id}: tested {n_tested} k-mers (global)")
+    p.set_defaults(func=run)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="kmersgwas_tpu_torch",
         description="k-mer GWAS association scan in PyTorch + CUDA")
     sub = ap.add_subparsers(dest="command", required=True)
     _add_associate(sub)
+    _add_associate_mp(sub)
     args = ap.parse_args(argv)
     return args.func(args)
 

@@ -5,6 +5,11 @@ The JAX package's `TopKState` and `BufferedTopKState` are NamedTuples of
 arrays: pass their fields as numpy arrays (e.g. `{k: np.asarray(v) for k,
 v in state._asdict().items()}`) and get the port's state on `device`, or
 take a port state back to numpy fields of the same names.
+
+The multi-process scan (kmersgwas_tpu/parallel/multihost.py) keeps each
+process's state with a leading local-device axis, `(D, P, K)`, `(D, P, C)`,
+`(D,)` and `(D, P)`; its checkpoints hold those blocks. A port process owns
+one device, so its blocks have D = 1 (`distributed_state_*`).
 """
 from __future__ import annotations
 
@@ -49,3 +54,23 @@ def to_numpy(state) -> dict:
              if is_dataclass(state) else state._asdict().items())
     return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
                 else np.int32(v)) for k, v in items}
+
+
+def distributed_state_from_numpy(blocks, device) -> BufferedTopKState:
+    """One process's BufferedTopKState blocks with a leading local-device
+    axis of length 1 (kmersgwas_tpu.parallel.multihost._local_state_blocks)
+    -> the port's BufferedTopKState on `device`."""
+    d = np.shape(blocks["scores"])[0]
+    if d != 1:
+        raise ValueError(f"the blocks hold the states of {d} devices; a "
+                         "process of the port owns one")
+    return buffered_state_from_numpy(
+        {f.name: np.asarray(blocks[f.name])[0]
+         for f in fields(BufferedTopKState)}, device)
+
+
+def distributed_state_to_numpy(state: BufferedTopKState) -> dict:
+    """The port's BufferedTopKState -> {field: numpy block} with a leading
+    local-device axis of length 1, as the JAX package's multi-process
+    checkpoints hold them."""
+    return {k: v[None] for k, v in to_numpy(state).items()}

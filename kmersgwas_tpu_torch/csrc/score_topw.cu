@@ -15,7 +15,8 @@
 //      scores its tile (score_common.cuh) and writes, per (column, tile),
 //      the top-3 (score, lane) with the lowest lane winning ties, and the
 //      count of lanes scoring > thresh. The 128 rows of a column live in
-//      one warp, so both reductions are warp shuffles.
+//      one warp, so both reductions are warp shuffles (tile_top3.cuh,
+//      shared with score_tilemax.cu).
 //   B. topw_select: one block per column takes the exact top-W of the
 //      3*n_tiles candidates by (score desc, lane asc) with a radix select
 //      on a 64-bit key, sorts them (bitonic, shared memory) and ANDs the
@@ -32,35 +33,9 @@
 // test per row and 32 FMAs per thread. Tensor cores (mma/wgmma on 0/1
 // operands) are the next step and are not used yet. Launch B reads the
 // 3*n_tiles candidates of its column nine times (L2-resident).
-#include <climits>
-
-#include "score_common.cuh"
+#include "tile_top3.cuh"
 
 namespace kgt {
-
-struct Top3 {
-    float v0, v1, v2;
-    int i0, i1, i2;
-};
-
-__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
-    return va > vb || (va == vb && ia < ib);
-}
-
-__device__ __forceinline__ void top3_insert(Top3& t, float v, int i) {
-    if (!better(v, i, t.v2, t.i2)) return;
-    if (better(v, i, t.v1, t.i1)) {
-        t.v2 = t.v1; t.i2 = t.i1;
-        if (better(v, i, t.v0, t.i0)) {
-            t.v1 = t.v0; t.i1 = t.i0;
-            t.v0 = v; t.i0 = i;
-        } else {
-            t.v1 = v; t.i1 = i;
-        }
-    } else {
-        t.v2 = v; t.i2 = i;
-    }
-}
 
 __global__ void __launch_bounds__(THREADS) score_topw_tiles_kernel(
         const uint32_t* __restrict__ packed, const float* __restrict__ popcnt,
@@ -84,29 +59,8 @@ __global__ void __launch_bounds__(THREADS) score_topw_tiles_kernel(
     for (int j = 0; j < TM_C; ++j) {
         const int c = c0 + tc * TM_C + j;
         const float th = thresh[c];
-        Top3 t = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
-                  INT_MAX, INT_MAX, INT_MAX};
-        int cnt = 0;
-#pragma unroll
-        for (int i = 0; i < TM_R; ++i) {
-            top3_insert(t, s[i][j], tr + 32 * i);
-            cnt += s[i][j] > th;
-        }
-        // butterfly: after step `off` each lane holds the top-3 of the
-        // 2*off lanes of its group; the groups merged are disjoint
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const float v0 = __shfl_xor_sync(FULL_MASK, t.v0, off);
-            const float v1 = __shfl_xor_sync(FULL_MASK, t.v1, off);
-            const float v2 = __shfl_xor_sync(FULL_MASK, t.v2, off);
-            const int i0 = __shfl_xor_sync(FULL_MASK, t.i0, off);
-            const int i1 = __shfl_xor_sync(FULL_MASK, t.i1, off);
-            const int i2 = __shfl_xor_sync(FULL_MASK, t.i2, off);
-            top3_insert(t, v0, i0);
-            top3_insert(t, v1, i1);
-            top3_insert(t, v2, i2);
-        }
-        cnt = __reduce_add_sync(FULL_MASK, cnt);
+        const Top3 t = column_top3(s, j, tr);
+        const int cnt = column_count(s, j, [th](float v) { return v > th; });
         if (tr == 0 && c < p) {
             const size_t base = (size_t)c * 3 * n_tiles + 3 * tile;
             tile_v[base] = t.v0;

@@ -29,15 +29,15 @@ from dataclasses import dataclass
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("score_topw.cu", "score_bmax.cu")
-HEADERS = ("score_common.cuh",)
+SOURCES = ("score_topw.cu", "score_bmax.cu", "score_tilemax.cu")
+HEADERS = ("score_common.cuh", "tile_top3.cuh")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)     # looked at after PATH
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # block tile of the kernels (csrc/score_common.cuh TILE_ROWS / TILE_COLS):
-# batch rows must be a multiple of TILE_ROWS, and the top-3 capture of
-# score_topw is per TILE_ROWS-row tile
+# batch rows must be a multiple of TILE_ROWS, and the top-3 captures of
+# score_topw and score_tilemax are per TILE_ROWS-row tile
 TILE_ROWS = 128
 TILE_COLS = 64
 
@@ -108,6 +108,13 @@ def library() -> KernelLib:
         _P, _P, _P, _P,                # packed, popcnt, y, ysum
         _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
         _P, _P,                        # scores, bmax
+        _P]                            # stream
+    lib.kgt_score_tilemax.restype = _I
+    lib.kgt_score_tilemax.argtypes = [
+        _P, _P, _P, _P, _P,            # packed, popcnt, y, ysum, thresh
+        _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
+        _P, _P, _P, _P, _P, _P,        # tmax, targ, tmax2, targ2, tmax3, targ3
+        _P, _P, _P,                    # n2, n3, cnt
         _P]                            # stream
     lib.kgt_error_string.restype = ctypes.c_char_p
     lib.kgt_error_string.argtypes = [_I]

@@ -1,16 +1,20 @@
-"""The scan's per-batch step, `cand_w` mode (port of kmersgwas_tpu/ops/
-scanstep.py `scan_step_compact` with `cand_w`, :379-476, and the buffered
-state it carries).
+"""The scan's per-batch step (port of kmersgwas_tpu/ops/scanstep.py
+`scan_step_compact`, :379-662, and the buffered state it carries), in its
+two candidate modes:
+  cand_w — the score_topw kernel returns each column's top-W (score, lane)
+           candidates and a guard (the single-process scan's step);
+  cand_c — the score_tilemax kernel returns per-tile top-3 planes; the step
+           keeps the c hottest tiles' candidates (the multi-process scan's
+           step, :476-519).
 
-Per batch, the score_topw kernel returns each column's top-W (score, lane)
-candidates and a guard. When every lane that could still enter the top-k
-(score > thresh, the k-th score at the last merge) is provably among them,
-the step only appends the candidates to a side buffer (the top q of them
-when the (q+1)-th is already <= thresh); otherwise it recomputes the full
-scores with the score_bmax kernel and runs the exact wide merge. Exact by
-construction, with the reference heap's tie rules: only a strictly greater
-score displaces, and the earliest row wins among equals (the concatenation
-order state < buffer < batch, then a stable sort).
+When every lane that could still enter the top-k (score > thresh, the
+k-th score at the last merge) is provably among the candidates, the step
+only appends them to a side buffer (the top q of them when the (q+1)-th is
+already <= thresh); otherwise it recomputes the full scores with the
+score_bmax kernel and runs the exact wide merge. Exact by construction,
+with the reference heap's tie rules: only a strictly greater score
+displaces, and the earliest row wins among equals (the concatenation order
+state < buffer < batch, then a stable sort).
 
 Each `lax.cond` of the reference is a host branch here, decided from
 device flags that one small device-to-host copy per step brings back; a
@@ -134,10 +138,50 @@ def flush_buffered(st: BufferedTopKState) -> topk_ops.TopKState:
         [st.row_hi, st.buf_hi], k))
 
 
+def _tilemax_candidates(state: BufferedTopKState, packed, popcnt,
+                        y_padded, y_sum, *, n_used: int, min_count: int,
+                        tile_rows: int, cand_c: int, cand_c2: int | None,
+                        precision: str):
+    """`cand_c` mode: per column the top-3 of the c hottest tiles (only the
+    top-1 of tiles ranked past c2) sorted by (value desc, lane asc), and
+    the guard of kmersgwas_tpu/ops/scanstep.py:514-519. -> (v, g, okc)."""
+    tmax, targ, tmax2, targ2, tmax3, targ3, n2, n3, cnt = \
+        score_ops.score_batch_t_tilemax(
+            packed, popcnt, y_padded, y_sum, state.thresh, n_used=n_used,
+            min_count=min_count, tile_rows=tile_rows, precision=precision)
+    p, n_tiles = tmax.shape
+    c = min(cand_c, n_tiles)
+    c2 = min(cand_c2, c) if cand_c2 else c
+    th = state.thresh
+    if c < n_tiles:
+        v_all, ti = topk_ops.top_k(tmax, c + 1)
+        v1, ti_c = v_all[:, :c], ti[:, :c]
+        okc = v_all[:, c] <= th            # the excluded tiles are cold
+    else:                                  # every tile kept
+        v1, ti_c = topk_ops.top_k(tmax, c)
+        okc = torch.ones(p, dtype=torch.bool, device=th.device)
+    ti2 = ti_c[:, :c2]
+    v2_full = tmax2.gather(1, ti_c)
+    # the lanes are exact (no sum encoding), so every g is a real lane
+    g = torch.cat([ti_c * tile_rows + targ.gather(1, ti_c),
+                   ti2 * tile_rows + targ2.gather(1, ti2),
+                   ti2 * tile_rows + targ3.gather(1, ti2)], dim=1)
+    v, g = topk_ops.sort_desc_index_asc(
+        torch.cat([v1, v2_full[:, :c2], tmax3.gather(1, ti2)], dim=1), g)
+    th2 = th[:, None]
+    okc = (okc & (cnt <= 3).all(dim=1)
+           & ((tmax2 <= th2) | (n2 == 1)).all(dim=1)
+           & ((tmax3 <= th2) | (n3 == 1)).all(dim=1))
+    if c2 < c:              # kept tiles past rank c2 hold no hot 2nd lane
+        okc = okc & (v2_full[:, c2:] <= th2).all(dim=1)
+    return v, g, okc
+
+
 def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
                       row_hi, y_padded, y_sum, *, n_used: int,
                       min_count: int, cand_k: int, tile_rows: int,
-                      cand_w: int, cand_q: int | None = None,
+                      cand_w: int | None = None, cand_c: int | None = None,
+                      cand_c2: int | None = None, cand_q: int | None = None,
                       precision: str = "default", col_group: int = 128,
                       block: int = 16, counts: dict | None = None
                       ) -> BufferedTopKState:
@@ -146,11 +190,15 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
     packed (R, W32) int32 planes, popcnt (R,) f32 (0 marks padding rows),
     row_lo/row_hi (R,) int32 encoded row ids, y_padded (N_pad, P) f32,
     y_sum (P,) f32, all on one device. R % tile_rows == 0; the buffer
-    capacity must be a multiple of cand_w.
+    capacity must be a multiple of the candidate width.
 
-    cand_q: narrow append width (used when it is < cand_w and divides the
-    capacity): when the (q+1)-th candidate is already <= thresh only the
-    top q are kept — the rest can never strictly beat the final k-th.
+    cand_w: `cand_w` mode with W = cand_w candidates per column. None
+    selects `cand_c` mode: the top-3 of the min(cand_c, R/tile_rows)
+    hottest tiles, of which only the cand_c2 hottest contribute their 2nd
+    and 3rd lanes (default: all), so c + 2*c2 candidates per column.
+    cand_q: narrow append width (used when it is < the width and divides
+    the capacity): when the (q+1)-th candidate is already <= thresh only
+    the top q are kept — the rest can never strictly beat the final k-th.
     col_group: the guards and the append/fallback decision run per group of
     <= col_group columns, so one hot column group falls back alone (the
     groups share buf_n; a fallen-back group's slot is left at -inf).
@@ -160,17 +208,23 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
     cap = state.buf_v.shape[1]
     rows = packed.shape[0]
     p = state.scores.shape[0]
-    width = cand_w
-    assert rows % tile_rows == 0 and cap % width == 0
+    assert rows % tile_rows == 0
+    if cand_w is not None:
+        v, g, okc = score_ops.score_batch_t_topw(
+            packed, popcnt, y_padded, y_sum, state.thresh, n_used=n_used,
+            min_count=min_count, tile_rows=tile_rows, cand_w=cand_w,
+            precision=precision)
+        # candidates past the W-th are <= v[:, -1]: dropping them is exact
+        # only when they are cold
+        okc = okc & (v[:, -1] <= state.thresh)
+    else:
+        v, g, okc = _tilemax_candidates(
+            state, packed, popcnt, y_padded, y_sum, n_used=n_used,
+            min_count=min_count, tile_rows=tile_rows, cand_c=cand_c,
+            cand_c2=cand_c2, precision=precision)
+    width = v.shape[1]
+    assert cap % width == 0
     q = cand_q if cand_q and cand_q < width and cap % cand_q == 0 else None
-
-    v, g, okc = score_ops.score_batch_t_topw(
-        packed, popcnt, y_padded, y_sum, state.thresh, n_used=n_used,
-        min_count=min_count, tile_rows=tile_rows, cand_w=cand_w,
-        precision=precision)
-    # candidates past the W-th are <= v[:, -1]: dropping them is exact
-    # only when they are cold
-    okc = okc & (v[:, -1] <= state.thresh)
     nar_c = v[:, q] <= state.thresh if q else okc
     flags = torch.stack([okc, nar_c]).cpu()           # the step's one sync
     okc_h, nar_h = flags[0].tolist(), flags[1].tolist()

@@ -14,7 +14,7 @@ Precision is explicit and never inherited from torch's global flags:
   "highest" — f32 products, f32 sums;
   "default" — y rounded to bf16, times the exact 0/1 bits, f32 sums (what
               kmersgwas_tpu/ops/score.py:88-106 documents for the TPU).
-Both kernels take one f32 body: the wrappers round y before the launch.
+The kernels share one f32 body: the wrappers round y before the launch.
 
 Each kernel wrapper sends a CPU tensor to the plain version and a CUDA
 tensor to the kernel; there is no other route and no fallback. Each keeps
@@ -125,6 +125,51 @@ def topw_plain(packed, popcnt, y_padded, y_sum, thresh, *, n_used: int,
         cat_g = torch.nn.functional.pad(cat_g, (0, pad))
     v, g = sort_desc_index_asc(cat_v, cat_g)
     return v[:, :cand_w].contiguous(), g[:, :cand_w].contiguous(), ok
+
+
+def tilemax_from_scores(sc, thresh, tile_rows: int):
+    """The nine per-(column, tile) planes of the score_tilemax kernel from
+    full (P, R) scores (see tilemax_plain)."""
+    p, r = sc.shape
+    assert r % tile_rows == 0 and tile_rows >= 3
+    s3 = sc.view(p, r // tile_rows, tile_rows)
+    v, a = top_k(s3, 3)                                   # (P, T, 3)
+    v0, v1, v2 = v.unbind(-1)
+    neg_inf = float("-inf")
+
+    def count(value):
+        return (s3 == value[..., None]).sum(dim=-1)
+    # s2 drops lane targ (score v0) and holds -inf there; s3 also drops
+    # lane targ2 (score v1)
+    n2 = count(v1) - (v0 == v1).long() + (v1 == neg_inf).long()
+    n3 = (count(v2) - (v0 == v2).long() - (v1 == v2).long()
+          + 2 * (v2 == neg_inf).long())
+    cnt = (s3 > thresh[:, None, None]).sum(dim=-1)
+    a = a.to(torch.int32)
+    return tuple(x.contiguous() for x in (
+        v0, a[..., 0], v1, a[..., 1], v2, a[..., 2], n2.to(torch.int32),
+        n3.to(torch.int32), cnt.to(torch.int32)))
+
+
+def tilemax_plain(packed, popcnt, y_padded, y_sum, thresh, *, n_used: int,
+                  min_count: int, tile_rows: int,
+                  precision: str = "default"):
+    """Plain version of the score_tilemax kernel: per column c and tile t
+    of `tile_rows` lanes, with s the tile's scores,
+      (tmax, targ), (tmax2, targ2), (tmax3, targ3) — the first three lanes
+          of the tile by (score desc, lane asc), lanes within the tile;
+      n2, n3 — #{l : s2[l] == tmax2}, #{l : s3[l] == tmax3}, where s2 is s
+          with lane targ at -inf and s3 is s2 with lane targ2 at -inf;
+      cnt — #{l : s[l] > thresh[c]}.
+    -> nine (P, T) planes, f32 values and int32 lanes and counts.
+
+    The reference's XLA mirror (kmersgwas_tpu/ops/scanstep.py `_tilemax`)
+    sum-encodes targ2/targ3; every plane here equals its plane wherever the
+    reference's is meaningful: tmax, targ, tmax2, n2 and cnt everywhere;
+    targ2, tmax3 and n3 where n2 == 1; targ3 where n2 == n3 == 1."""
+    sc = scores_t_plain(packed, popcnt, y_padded, y_sum, n_used=n_used,
+                        min_count=min_count, precision=precision)
+    return tilemax_from_scores(sc, thresh, tile_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -252,3 +297,46 @@ def score_batch_t_bmax(packed, popcnt, y_padded, y_sum, *, n_used: int,
 
 
 score_batch_t_bmax.launches = 0
+
+
+def score_batch_t_tilemax(packed, popcnt, y_padded, y_sum, thresh, *,
+                          n_used: int, min_count: int, tile_rows: int,
+                          precision: str = "default"):
+    """Compact scan kernel (csrc/score_tilemax.cu; replaces kmersgwas_tpu
+    score_batch_t_pallas_tilemax): -> the nine (P, R/tile_rows) planes
+    (tmax, targ, tmax2, targ2, tmax3, targ3, n2, n3, cnt) defined in
+    tilemax_plain. On the card tile_rows must be the kernel's TILE_ROWS."""
+    if packed.device.type == "cpu":
+        return tilemax_plain(packed, popcnt, y_padded, y_sum, thresh,
+                             n_used=n_used, min_count=min_count,
+                             tile_rows=tile_rows, precision=precision)
+    _require_cuda(packed)
+    if tile_rows != _cuda.TILE_ROWS:
+        raise ValueError(f"the score_tilemax kernel reduces "
+                         f"{_cuda.TILE_ROWS}-row tiles, got {tile_rows}")
+    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
+                                                y_sum, precision)
+    dev = packed.device
+    if thresh.shape != (p,) or thresh.dtype != torch.float32 \
+            or thresh.device != dev:
+        raise ValueError("thresh must be a (P,) float32 tensor on the card")
+    th = torch.full((p_pad,), float("inf"), dtype=torch.float32, device=dev)
+    th[:p] = thresh
+    n_tiles = rows // _cuda.TILE_ROWS
+    planes = [torch.empty((p, n_tiles), dtype=dt, device=dev)
+              for dt in (torch.float32, torch.int32) * 3
+              + (torch.int32,) * 3]
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = lib.lib.kgt_score_tilemax(
+            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
+            ys.data_ptr(), th.data_ptr(), rows, w32, p, p_pad,
+            float(n_used), float(min_count),
+            *(t.data_ptr() for t in planes),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "score_tilemax")
+    score_batch_t_tilemax.launches += 1
+    return tuple(planes)
+
+
+score_batch_t_tilemax.launches = 0

@@ -1,9 +1,13 @@
-"""Checkpoint/resume of the streaming scan (port of the scan half of
-kmersgwas_tpu/pipeline/checkpoint.py).
+"""Checkpoint/resume of the streaming scans (port of the scan half of
+kmersgwas_tpu/pipeline/checkpoint.py, and of the per-process checkpoints
+of kmersgwas_tpu/parallel/multihost.run_distributed_scan).
 
-The npz fields are the JAX package's (`scores`, `row_lo`, `row_hi`,
-`next_row`, `n_tested`, `stream`, `meta_keys`, `meta_vals`), so a
-checkpoint written by either package resumes in the other.
+The npz fields are the JAX package's, so a checkpoint written by either
+package resumes in the other: `scores`, `row_lo`, `row_hi`, `next_row`,
+`n_tested`, `stream`, `meta_keys`, `meta_vals` for the single-process
+scan; the BufferedTopKState fields with a leading local-device axis plus
+`next_row`, `n_tested`, `stream` (bytes) and the meta keys for one process
+of the multi-process scan.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import os
 
 import numpy as np
 
+from .. import convert
 from ..ops import topk as topk_ops
 
 
@@ -57,6 +62,40 @@ def load_scan_state(path: str, meta: dict | None = None):
                                row_hi=z["row_hi"])
     stream = str(z["stream"]) if "stream" in z.files else "table"
     return state, int(z["next_row"]), int(z["n_tested"]), stream
+
+
+def save_distributed_state(path: str, state, next_row: int, n_tested: int,
+                           stream: str, meta: dict) -> None:
+    """One process's BufferedTopKState of the multi-process scan, with the
+    position after its last batch and its tested count, stamped with the
+    topology fingerprint `meta`."""
+    _atomic_savez(path, **convert.distributed_state_to_numpy(state),
+                  next_row=np.int64(next_row), n_tested=np.int64(n_tested),
+                  stream=np.bytes_(stream.encode()), **meta_arrays(meta))
+
+
+def load_distributed_state(path: str, stream: str, meta: dict, device):
+    """-> (BufferedTopKState on `device`, next_row, n_tested), or None when
+    the checkpoint is absent or indexes the other stream. Refuses (ValueError)
+    a checkpoint whose fingerprint differs from `meta` or that holds the
+    states of more than one device (a mesh of the JAX package): this process
+    owns one device, and dropping or merging the other states would
+    mis-resume silently."""
+    path = _norm(path)
+    if not os.path.exists(path):
+        return None
+    z = np.load(path)
+    if bytes(z["stream"]).decode() != stream:
+        return None
+    check_meta(z, meta, path)
+    d = z["scores"].shape[0]
+    if d != 1:
+        raise ValueError(
+            f"checkpoint {path} holds the top-k states of {d} devices, and "
+            f"this process owns one; refusing to resume — delete the "
+            f"checkpoint files to restart clean")
+    return (convert.distributed_state_from_numpy(z, device),
+            int(z["next_row"]), int(z["n_tested"]))
 
 
 def meta_arrays(meta: dict | None) -> dict:

@@ -1,15 +1,18 @@
-"""Host feed over a device-native .dtable, and its staging to the card.
+"""Host feeds over a .table or a device-native .dtable, and their staging
+to the device.
 
 `dtable_feed` is a jax-free copy of kmersgwas_tpu/pipeline/feed.py
 `dtable_feed` (that module imports kmersgwas_tpu.ops.topk, which imports
 jax) with the same contract (tests/test_feed.py): a full batch is the raw
 memmap slice, the padded tail has zeroed rows and popcounts, and
-`pos_after` is the exact dtable row index after the batch.
+`pos_after` is the exact dtable row index after the batch. `table_feed`
+gives the raw table's MAC-filtered batches the same shape.
 
 Host-to-device copies are asynchronous only from pinned memory, so batches
 go to the card through a `PinnedRing`: a few pinned staging buffers, each
 guarded by a CUDA event recorded after its copy was enqueued, so a buffer
-is never overwritten while its copy is in flight.
+is never overwritten while its copy is in flight. `device_batches` runs a
+feed and its staging on a prefetch thread.
 """
 from __future__ import annotations
 
@@ -106,6 +109,80 @@ def dtable_feed(dt, pad_to: int, *, start_row: int = 0,
     finally:
         if fd is not None:
             os.close(fd)
+
+
+def table_feed(reader, batch_rows: int, pad_to: int, min_count: int, *,
+               start_row: int = 0, end_row: int | None = None,
+               want_patterns: bool = False):
+    """Yield batches of <= batch_rows of a KmersTableReader's MAC-passing
+    rows in [start_row, end_row), in dtable_feed's form: (r, packed,
+    popcnt_f32, row_lo, row_hi, pos_after, pats) padded to `pad_to` rows,
+    pos_after the .table row after the batch's last row."""
+    for b in reader.iter_batches(batch_rows, min_count, start_row=start_row,
+                                 end_row=end_row):
+        r = len(b.row_index)
+        packed = np.zeros((pad_to, reader.w32), np.uint32)
+        packed[:r] = b.packed
+        popcnt = np.zeros(pad_to, np.float32)
+        popcnt[:r] = b.popcnt
+        rows = np.zeros(pad_to, np.int64)
+        rows[:r] = b.row_index
+        lo, hi = topk_ops.encode_rows(rows)
+        pats = np.asarray(b.packed) if want_patterns else None
+        yield r, packed, popcnt, lo, hi, int(b.row_index[-1]) + 1, pats
+
+
+# copy of kmersgwas_tpu.pipeline.scan._prefetch
+def _prefetch(iterator, depth: int = 2):
+    """Run `iterator` on a background thread, buffering `depth` items, so
+    host-side batch prep overlaps device compute."""
+    import threading
+    q = queue.Queue(maxsize=depth)
+    _END = object()
+    err = []
+
+    def worker():
+        try:
+            for item in iterator:
+                q.put(item)
+        except BaseException as e:   # propagate into the consumer
+            err.append(e)
+        finally:
+            q.put(_END)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is _END:
+            break
+        yield item
+    t.join()
+    if err:
+        raise err[0]
+
+
+def device_batches(batches, device: torch.device, pad_to: int, w32: int,
+                   depth: int = 2):
+    """Run a feed (table_feed or dtable_feed) and the staging of its batches
+    on a prefetch thread, `depth` batches ahead. Returns an iterator of (r,
+    (packed, popcnt, row_lo, row_hi) on `device`, pos_after, pats). On the
+    card the batches go through a PinnedRing, allocated here (set-up, not
+    stream time), and their copies are enqueued, on the current stream, as
+    each is taken."""
+    ring = (PinnedRing(depth + 2, pad_to, w32) if device.type == "cuda"
+            else None)
+
+    def stage(item):
+        r, packed, popcnt, lo, hi, pos_after, pats = item
+        arrays = (packed, popcnt, lo, hi)
+        staged = ring.stage(*arrays) if ring else host_tensors(*arrays)
+        return r, staged, pos_after, pats
+
+    return ((r, ring.upload(staged, device) if ring else staged, pos_after,
+             pats)
+            for r, staged, pos_after, pats in _prefetch(map(stage, batches),
+                                                        depth))
 
 
 def host_tensors(packed, popcnt, lo, hi):

@@ -108,37 +108,6 @@ def effective_min_count(n_accessions: int, maf: float, mac: int) -> int:
     return max(int(mac), math.ceil(n_accessions * maf))
 
 
-# copy of kmersgwas_tpu.pipeline.scan._prefetch
-def _prefetch(iterator, depth: int = 2):
-    """Run `iterator` on a background thread, buffering `depth` items, so
-    host-side batch prep overlaps device compute."""
-    import queue
-    import threading
-    q = queue.Queue(maxsize=depth)
-    _END = object()
-    err = []
-
-    def worker():
-        try:
-            for item in iterator:
-                q.put(item)
-        except BaseException as e:   # propagate into the consumer
-            err.append(e)
-        finally:
-            q.put(_END)
-
-    t = threading.Thread(target=worker, daemon=True)
-    t.start()
-    while True:
-        item = q.get()
-        if item is _END:
-            break
-        yield item
-    t.join()
-    if err:
-        raise err[0]
-
-
 # copy of kmersgwas_tpu.pipeline.scan._PatternCounter
 class _PatternCounter:
     """Streaming distinct-pattern counter (pattern hash per row, merged
@@ -170,6 +139,12 @@ class _PatternCounter:
     def count(self) -> int:
         self._compact()
         return len(self._sorted)
+
+    def sorted_hashes(self) -> np.ndarray:
+        """The sorted distinct hashes (the multi-process driver unions them
+        across processes: parallel/multihost.py)."""
+        self._compact()
+        return self._sorted
 
 
 def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
@@ -253,40 +228,12 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
         prepared = feed_mod.dtable_feed(dt, pad_to, start_row=start_row,
                                         want_patterns=patterns is not None)
     else:
-        batches = ((b.packed, b.popcnt, b.row_index) for b
-                   in reader.iter_batches(batch_size, min_count,
-                                          start_row=start_row))
+        prepared = feed_mod.table_feed(reader, batch_size, pad_to, min_count,
+                                       start_row=start_row,
+                                       want_patterns=patterns is not None)
 
-        def prepare(args):
-            """Host-side batch prep (runs on the prefetch thread): pad to
-            the fixed batch shape and pre-encode row ids."""
-            b_packed, b_popcnt, b_rows = args
-            r = len(b_rows)
-            packed = np.zeros((pad_to, reader.w32), np.uint32)
-            packed[:r] = b_packed
-            popcnt = np.zeros(pad_to, np.float32)
-            popcnt[:r] = b_popcnt
-            rows = np.zeros(pad_to, np.int64)
-            rows[:r] = b_rows
-            lo, hi = topk_ops.encode_rows(rows)
-            pats = np.asarray(b_packed) if patterns is not None else None
-            pos_after = int(b_rows[-1]) + 1 if r else -1   # -1: keep prior
-            return r, packed, popcnt, lo, hi, pos_after, pats
-
-        prepared = map(prepare, batches)
-
-    ring = (feed_mod.PinnedRing(_PREFETCH + 2, pad_to, reader.w32)
-            if dev.type == "cuda" else None)
-
-    def stage(item):
-        """Prefetch thread: the batch into a pinned staging buffer (card)
-        or into CPU tensors."""
-        r, packed, popcnt, lo, hi, pos_after, pats = item
-        arrays = (packed, popcnt, lo, hi)
-        staged = ring.stage(*arrays) if ring else feed_mod.host_tensors(
-            *arrays)
-        return r, staged, pos_after, pats
-
+    batches = feed_mod.device_batches(prepared, dev, pad_to, reader.w32,
+                                      depth=_PREFETCH)
     timings = {}
     steps = {"narrow": 0, "wide": 0, "fallback": 0, "flush": 0,
              "step_s": []}
@@ -295,16 +242,13 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     next_pos = start_row
     batch_i = 0
     inflight: deque = deque()
-    for r, staged, pos_after, pats in _prefetch(map(stage, prepared),
-                                                depth=_PREFETCH):
+    for r, batch, pos_after, pats in batches:
         t_step = time.perf_counter()
         n_tested += r
         if pats is not None:
             patterns.add(pats)
-        packed, popcnt, lo, hi = (ring.upload(staged, dev) if ring
-                                  else staged)
         ss.scan_step_compact(
-            state, packed, popcnt, lo, hi, yp, ysum, n_used=n_used,
+            state, *batch, yp, ysum, n_used=n_used,
             min_count=min_count, cand_k=cand_k, tile_rows=TILE_ROWS,
             cand_w=CAND_W, cand_q=CAND_Q, precision=score_precision,
             counts=steps)
@@ -313,8 +257,7 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
             drain(inflight.popleft())
         steps["step_s"].append(time.perf_counter() - t_step)
         batch_i += 1
-        if pos_after >= 0:
-            next_pos = pos_after
+        next_pos = pos_after
         if checkpoint_path and batch_i % checkpoint_every == 0:
             ckpt.save_scan_state(checkpoint_path, ss.flush_buffered(state),
                                  next_pos, n_tested, stream=stream_tag,

@@ -62,6 +62,31 @@ def test_kernels_equal_plain(cuda, rows, n, p, w, precision):
                                                    launches[1] + 1)
 
 
+@pytest.mark.parametrize("rows,n,p", [(1024, 100, 3), (4096, 1008, 101)])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_tilemax_kernel_equals_plain(cuda, rows, n, p, precision):
+    """K3's nine planes equal the plain version's bit for bit (dyadic
+    phenotypes), with runs of equal rows inside tiles so that the 2nd and
+    3rd values tie (n2, n3 > 1)."""
+    packed, pc, yp, ysum = batch(rows, n, p, rows + 3 * p, cuda)
+    packed.view(-1, 4, packed.shape[1])[: rows // 8, 1:] = \
+        packed.view(-1, 4, packed.shape[1])[: rows // 8, :1]
+    pc = bitplanes.popcount_rows(packed)
+    kw = dict(n_used=n, min_count=5, tile_rows=128, precision=precision)
+    launches = score.score_batch_t_tilemax.launches
+    sc = score.scores_t_plain(packed, pc, yp, ysum, n_used=n, min_count=5,
+                              precision=precision)
+    q = torch.topk(sc, 16, dim=1).values[:, -1].contiguous()
+    for th in (torch.full((p,), float("-inf"), device=cuda), q,
+               torch.full((p,), float("inf"), device=cuda)):
+        got = score.score_batch_t_tilemax(packed, pc, yp, ysum, th, **kw)
+        want = score.tilemax_plain(packed, pc, yp, ysum, th, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert bool((got[6] > 1).any()) and bool((got[7] > 1).any())
+    assert score.score_batch_t_tilemax.launches == launches + 3
+
+
 def test_kernel_wrappers_refuse_bad_shapes(cuda):
     packed, pc, yp, ysum = batch(256, 100, 3, 1, cuda)
     th = torch.zeros(3, device=cuda)
@@ -74,13 +99,13 @@ def test_kernel_wrappers_refuse_bad_shapes(cuda):
                                  ysum, **kw)
     with pytest.raises(ValueError, match="16-lane"):
         score.score_batch_t_bmax(packed, pc, yp, ysum, block=8, **kw)
+    with pytest.raises(ValueError, match="128-row tiles"):
+        score.score_batch_t_tilemax(packed, pc, yp, ysum, th, tile_rows=64,
+                                    **kw)
 
 
-def test_associate_on_card_equals_cpu(cuda, tmp_path):
+def write_table(tmp_path, rng, n, rows, kmer_len):
     from kmersgwas_tpu.core import formats
-    from kmersgwas_tpu_torch.pipeline import scan
-    rng = np.random.default_rng(4)
-    n, rows, kmer_len = 150, 40_000, 31
     names = [f"acc{i}" for i in range(n)]
     base = str(tmp_path / "pop")
     wf = (n + 63) // 64
@@ -93,6 +118,14 @@ def test_associate_on_card_equals_cpu(cuda, tmp_path):
         formats.write_table_header(f, n, kmer_len)
         raw.tofile(f)
     formats.write_names(base, names)
+    return base, names
+
+
+def test_associate_on_card_equals_cpu(cuda, tmp_path):
+    from kmersgwas_tpu_torch.pipeline import scan
+    rng = np.random.default_rng(4)
+    n, rows, kmer_len = 150, 40_000, 31
+    base, names = write_table(tmp_path, rng, n, rows, kmer_len)
     y = np.round(rng.uniform(-8, 8, size=(n, 3)) * 8) / 8
     # a small top-k over many batches: the threshold settles, so the
     # append branches run on the card as well as the fallback
@@ -108,3 +141,29 @@ def test_associate_on_card_equals_cpu(cuda, tmp_path):
     for j in range(3):
         np.testing.assert_array_equal(out[0].rows[j], out[1].rows[j])
         np.testing.assert_array_equal(out[0].scores[j], out[1].scores[j])
+
+
+def test_distributed_scan_on_card_equals_cpu_and_associate(cuda, tmp_path):
+    """One process of the multi-process scan on the card: the same top-k
+    as on the CPU and as `associate`, with K3 launched on every batch."""
+    from kmersgwas_tpu_torch.parallel import multihost
+    from kmersgwas_tpu_torch.pipeline import scan
+    rng = np.random.default_rng(6)
+    n, rows, kmer_len = 150, 40_000, 31
+    base, names = write_table(tmp_path, rng, n, rows, kmer_len)
+    y = np.round(rng.uniform(-8, 8, size=(n, 3)) * 8) / 8
+    kw = dict(kmer_len=kmer_len, n_top=8, batch_size=1024,
+              count_patterns=True)
+    launches = score.score_batch_t_tilemax.launches
+    got = multihost.run_distributed_scan(base, names, y, list("abc"),
+                                         device="cuda", **kw)
+    n_batches = score.score_batch_t_tilemax.launches - launches
+    assert n_batches >= got[1] // 1024
+    cpu = multihost.run_distributed_scan(base, names, y, list("abc"),
+                                         device="cpu", **kw)
+    ref = scan.associate(base, names, y, list("abc"), device="cuda", **kw)
+    assert got[1:] == cpu[1:] == (ref.n_tested, ref.n_patterns)
+    for j in range(3):
+        for other in (cpu[0][j], (ref.scores[j], ref.rows[j])):
+            np.testing.assert_array_equal(got[0][j][1], other[1])
+            np.testing.assert_array_equal(got[0][j][0], other[0])
