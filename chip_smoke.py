@@ -7,12 +7,15 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. environment: the card's name and power limit, CUDA and nvcc versions,
-     the kernels' build from csrc/;
-  2. kernels against their plain PyTorch versions on the card, at a small
-     shape and at one flagship batch (R=2,097,152, N=1008, P=101, W=256):
-     bit-equal on dyadic phenotypes, within a stated tolerance on Gaussian
-     ones at precision "highest", with times; K3 (score_tilemax) also on
-     batches with runs of equal rows inside tiles (tied 2nd/3rd values);
+     the kernels' build from csrc/ (one nvcc per source, in parallel);
+  2. kernels against their plain PyTorch versions on the card, at small
+     shapes and at one flagship batch (R=2,097,152, N=1008, P=101, W=256):
+     K1-K5 bit-equal on dyadic phenotypes, within a stated tolerance on
+     Gaussian ones at precision "highest", with times; K3 (score_tilemax)
+     also on batches with runs of equal rows inside tiles (tied 2nd/3rd
+     values); K7 (kinship_gram) bit-equal to the plain +-1 Gram at 2^20
+     rows x N=1008, also at a ragged n_rows (2^20 - 37) with a random
+     tail, with times;
   3. the main path, `associate` on the dtable route at its real shape
      (N=1008, P=101, top-10001, 2,000,000-row batches, ~4.2M rows), held
      against a numpy f64 brute force;
@@ -28,7 +31,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      on phase 3's table (N=1008, P=101, top-10001, 2M-row batches): the
      same top-k as `associate` in all 101 columns, K3 on every batch;
   7. `associate-mp` in 2 processes sharing the card (gloo) against 1
-     process: output files byte-identical.
+     process: output files byte-identical;
+  8. the kinship path, `kinship_from_table` on phase 3's table (N=1008,
+     4.2M rows, maf 0.05, 2^20-row batches, K7 on every batch) on both
+     routes: equal to the plain accumulator on the card bit for bit, to a
+     numpy XNOR count on 64 sampled pairs, and to a run resumed from its
+     mid-stream checkpoint; rows/s and peak device memory;
+  9. `kinship --device cuda` against `--device cpu` on a 200,000-row
+     N=200 table: stdout byte-identical;
+ 10. `kinship-mp` in 2 processes sharing the card against phase 8's
+     one-process matrix: `write_kinship`'s TSV byte-identical;
+ 11. the plain scan step `scan_step` (K4 on every batch) at the main
+     path's shape, top-10001, cand_k 1250, 14 device-made 2M-row batches
+     through both its branches, held against a plain running top-k;
+ 12. `score_batch` (K5) on one flagship batch against a numpy f64
+     computation on sampled rows.
 The script writes its inputs itself and imports nothing of the JAX
 package. The line before the last is the kernels' JSON record; the last
 line is {"ok": true, "device": {...}}. Without CUDA the script fails at
@@ -50,9 +67,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOPW_SOURCE = "kmersgwas_tpu_torch/csrc/score_topw.cu"
 BMAX_SOURCE = "kmersgwas_tpu_torch/csrc/score_bmax.cu"
 TILEMAX_SOURCE = "kmersgwas_tpu_torch/csrc/score_tilemax.cu"
+SCORE_T_SOURCE = "kmersgwas_tpu_torch/csrc/score_t.cu"
+SCORE_ROWS_SOURCE = "kmersgwas_tpu_torch/csrc/score_rows.cu"
+KINSHIP_SOURCE = "kmersgwas_tpu_torch/csrc/kinship_gram.cu"
 TOPW_REPLACES = "kmersgwas_tpu/ops/score.py:448"
 BMAX_REPLACES = "kmersgwas_tpu/ops/score.py:178"
 TILEMAX_REPLACES = "kmersgwas_tpu/ops/score.py:269"
+SCORE_T_REPLACES = "kmersgwas_tpu/ops/score.py:109"
+SCORE_ROWS_REPLACES = "kmersgwas_tpu/ops/score.py:630"
+KINSHIP_REPLACES = "tools/prof_kinship.py:18"
 # Gaussian phenotypes at precision "highest": the kernel and cuBLAS sum
 # ~500 f32 terms in different orders, and the score's numerator N*yigi -
 # n1*ysum cancels, so an error in r of a few f32 ulps of N*yigi moves a
@@ -134,34 +157,34 @@ def phase_env():
 
 # ---------------------------------------------------------------- phase 2
 
-def make_planes(rows, n, seed, pad_rows=0):
+def make_planes(rows, n, seed, pad_rows=0, device="cuda"):
     """Random packed planes on the card (bits past n zero, the last
     `pad_rows` rows zero = padding) and their popcounts."""
     import torch
     from kmersgwas_tpu_torch.ops import bitplanes
     n_pad = -(-n // 128) * 128
     w32 = n_pad // 32
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
     packed = torch.randint(-2 ** 31, 2 ** 31, (rows, w32), dtype=torch.int32,
-                           device="cuda", generator=g)
+                           device=device, generator=g)
     lane_ok = np.zeros(n_pad, np.uint8)
     lane_ok[:n] = 1
     mask = torch.from_numpy(
-        bitplanes.pack_bits_np(lane_ok).view(np.int32)).cuda()
+        bitplanes.pack_bits_np(lane_ok).view(np.int32)).to(device)
     packed &= mask
     if pad_rows:
         packed[rows - pad_rows:] = 0
     return packed, bitplanes.popcount_rows(packed)
 
 
-def make_batch(rows, n, p, seed, pad_rows, gaussian):
+def make_batch(rows, n, p, seed, pad_rows, gaussian, device="cuda"):
     """make_planes plus phenotypes (padded y and column sums)."""
     from kmersgwas_tpu_torch.ops import score
-    packed, popcnt = make_planes(rows, n, seed, pad_rows)
+    packed, popcnt = make_planes(rows, n, seed, pad_rows, device)
     rng = np.random.default_rng(seed)
     y = (rng.normal(size=(n, p)).astype(np.float32) if gaussian
          else dyadic(rng, (n, p)))
-    yp, ysum = score.prepare_phenotypes(y, -(-n // 128) * 128, "cuda")
+    yp, ysum = score.prepare_phenotypes(y, -(-n // 128) * 128, device)
     return packed, popcnt, yp, ysum
 
 
@@ -243,15 +266,61 @@ def check_tilemax_at(packed, yp, ysum, gaussian, prec, kw, label, timing):
     return err, times
 
 
+def check_scores_at(packed, pc, yp, ysum, gaussian, prec, kw, label, timing):
+    """K4 (score_t, (P, R) with -inf padding rows) and K5 (score_rows,
+    (R, P), no padding mask) against their plain versions: bit-equal on
+    dyadic phenotypes, within the RTOL bound on Gaussian ones. -> (max abs
+    err K4, K5, (K4 ms, plain ms, K5 ms, plain ms) or None)."""
+    import torch
+    from kmersgwas_tpu_torch.ops import score
+    args = (packed, pc, yp, ysum)
+    tkw = dict(precision=prec, **kw)
+    errs = []
+    for name, kern, plain, scale_dim in (
+            ("K4", score.score_batch_t, score.scores_t_plain, 1),
+            ("K5", score.score_batch, score.scores_plain, 0)):
+        got = kern(*args, **tkw)
+        torch.cuda.synchronize()
+        want = plain(*args, **tkw)
+        tag = f"{label}: {name} ({'gauss' if gaussian else 'dyadic'} {prec})"
+        need(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)}")
+        fin = torch.isfinite(want)
+        need(torch.equal(torch.isfinite(got), fin), f"{tag}: -inf entries")
+        need((name == "K5") == bool(fin.all()),
+             f"{tag}: padding rows {'masked' if name == 'K5' else 'unmasked'}")
+        if gaussian:
+            d = torch.where(fin, (got - want).abs(), 0.0)
+            scale = torch.where(fin, want.abs(), 0.0).amax(
+                dim=scale_dim, keepdim=True)
+            errs.append(float(d.max()))
+            need(bool((d <= RTOL * (torch.where(fin, want.abs(), 0.0)
+                                    + scale)).all()),
+                 f"{tag}: scores off by {float(d.max())}")
+        else:
+            errs.append(0.0)
+            need(torch.equal(got, want), f"{tag}: != plain, max diff "
+                 f"{float(torch.where(fin, (got - want).abs(), 0).max())}")
+        del got, want
+    times = None
+    if timing:
+        times = (cuda_ms(lambda: score.score_batch_t(*args, **tkw)),
+                 cuda_ms(lambda: score.scores_t_plain(*args, **tkw), reps=3),
+                 cuda_ms(lambda: score.score_batch(*args, **tkw)),
+                 cuda_ms(lambda: score.scores_plain(*args, **tkw), reps=3))
+    log(f"  {label} {'gauss' if gaussian else 'dyadic'} {prec:8s} K4, K5: "
+        f"checked against plain")
+    return errs[0], errs[1], times
+
+
 def check_kernels_at(rows, n, p, w, seed, label, timing=False):
-    """K1, K2 and K3 against their plain versions at one shape. Returns
-    (max abs err K1, K2, K3, times or None)."""
+    """K1-K5 against their plain versions at one shape. Returns (max abs
+    err of K1, K2, K3, K4, K5, times or None)."""
     import torch
     from kmersgwas_tpu_torch.ops import score
     mc = 5
     kw = dict(n_used=n, min_count=mc)
-    err1 = err2 = err3 = 0.0
-    times = t3 = None
+    err1 = err2 = err3 = err4 = err5 = 0.0
+    times = t3 = t45 = None
     for gaussian, prec in ((False, "default"), (False, "highest"),
                            (True, "highest")):
         packed, pc, yp, ysum = make_batch(rows, n, p, seed, rows // 8 + 37,
@@ -326,35 +395,84 @@ def check_kernels_at(rows, n, p, w, seed, label, timing=False):
                 f"ok_eff {int(ok_eff.sum())}")
         del ks, kb, ps, pb
         torch.cuda.empty_cache()
+        e4, e5, t = check_scores_at(packed, pc, yp, ysum, gaussian, prec, kw,
+                                    label, timing and not gaussian
+                                    and prec == "default")
+        err4, err5 = max(err4, e4), max(err5, e5)
+        t45 = t or t45
+        torch.cuda.empty_cache()
         e3, t = check_tilemax_at(packed, yp, ysum, gaussian, prec, kw, label,
                                  timing and not gaussian
                                  and prec == "default")
         err3 = max(err3, e3)
         t3 = t or t3
         torch.cuda.empty_cache()
-    return err1, err2, err3, (times + t3 if times else None)
+    return err1, err2, err3, err4, err5, (times + t3 + t45 if times
+                                          else None)
+
+
+def check_kinship_at(rows, n, n_rows, seed, label, timing=False):
+    """K7 (kinship_gram) against kinship_gram_plain: the +-1 Gram of rows
+    [0, n_rows) of a (rows, W32) buffer whose tail is random (it must add
+    nothing), added in place onto a non-zero accumulator; integer, so
+    bit-equal. -> (kernel ms, plain ms) for a full buffer, or None."""
+    import torch
+    from kmersgwas_tpu_torch.ops import kinship
+    packed, _ = make_planes(rows, n, seed)
+    n_pad = packed.shape[1] * 32
+    acc0 = torch.randint(-9, 9, (n_pad, n_pad), dtype=torch.int32,
+                         device="cuda")
+    acc = acc0.clone()
+    kinship.kinship_accumulate(acc, packed, n_rows)
+    torch.cuda.synchronize()
+    want = kinship.kinship_gram_plain(packed, n_rows)
+    need(torch.equal(acc - acc0, want),
+         f"{label}: K7 != plain, {int((acc - acc0 != want).sum())} entries")
+    need(torch.equal(want, want.T), f"{label}: plain Gram not symmetric")
+    log(f"  {label}: K7 bit-equal to plain (n_rows {n_rows} of {rows} "
+        f"rows, n_pad {n_pad})")
+    if not timing:
+        return None
+    acc.zero_()
+    return (cuda_ms(lambda: kinship.kinship_accumulate(acc, packed, rows)),
+            cuda_ms(lambda: kinship.kinship_gram_plain(packed, rows),
+                    reps=3))
 
 
 def phase_kernels():
     """-> the largest errors measured over every shape (Gaussian phenotypes
     at "highest"; dyadic ones are checked bit-equal) and the flagship
     times."""
-    e1 = e2 = e3 = 0.0
+    e = [0.0] * 5
     for rows, n, p, w in ((1024, 100, 3, 16), (1024, 100, 70, 256),
                           (4096, 1008, 101, 256)):
-        a, b, c, _ = check_kernels_at(rows, n, p, w, seed=rows + p,
-                                      label=f"R={rows} N={n} P={p} W={w}")
-        e1, e2, e3 = max(e1, a), max(e2, b), max(e3, c)
-    a, b, c, times = check_kernels_at(2_097_152, 1008, 101, 256, seed=7,
-                                      label="flagship", timing=True)
-    e1, e2, e3 = max(e1, a), max(e2, b), max(e3, c)
+        *errs, _ = check_kernels_at(rows, n, p, w, seed=rows + p,
+                                    label=f"R={rows} N={n} P={p} W={w}")
+        e = [max(a, b) for a, b in zip(e, errs)]
+    *errs, times = check_kernels_at(2_097_152, 1008, 101, 256, seed=7,
+                                    label="flagship", timing=True)
+    e = [max(a, b) for a, b in zip(e, errs)]
     log(f"flagship K1 score_topw: kernel {times[0]:.3f} ms, plain "
         f"{times[1]:.3f} ms; K2 score_bmax: kernel {times[2]:.3f} ms, plain "
         f"{times[3]:.3f} ms; K3 score_tilemax: kernel {times[4]:.3f} ms, "
-        f"plain {times[5]:.3f} ms (median CUDA-event times)")
-    log(f"max abs err over all shapes (gaussian, highest): K1 {e1:.3g}, "
-        f"K2 {e2:.3g}, K3 {e3:.3g}")
-    return dict(err1=e1, err2=e2, err3=e3, times=times)
+        f"plain {times[5]:.3f} ms; K4 score_t: kernel {times[6]:.3f} ms, "
+        f"plain {times[7]:.3f} ms; K5 score_rows: kernel {times[8]:.3f} ms, "
+        f"plain {times[9]:.3f} ms (median CUDA-event times)")
+    log(f"max abs err over all shapes (gaussian, highest): K1 {e[0]:.3g}, "
+        f"K2 {e[1]:.3g}, K3 {e[2]:.3g}, K4 {e[3]:.3g}, K5 {e[4]:.3g}")
+    for rows, n, n_rows in ((4096, 100, 4001), (640, 300, 1),
+                            (20_000, 1008, 19_963)):
+        check_kinship_at(rows, n, n_rows, seed=rows + n,
+                         label=f"R={rows} N={n}")
+    check_kinship_at(1 << 20, 1008, (1 << 20) - 37, seed=9,
+                     label="flagship ragged")
+    kt = check_kinship_at(1 << 20, 1008, 1 << 20, seed=8,
+                          label="flagship", timing=True)
+    ops = 2 * (1 << 20) * 1024 * 1024
+    log(f"flagship K7 kinship_gram (2^20 rows, n_pad 1024): kernel "
+        f"{kt[0]:.3f} ms ({ops / kt[0] / 1e9:.1f} T int8 op/s of the full "
+        f"Gram), plain {kt[1]:.3f} ms (median CUDA-event times)")
+    return dict(errs=e, times=times + kt)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -506,7 +624,8 @@ def phase_main(workdir, n_rows=4_200_000, p=101, k=10001, batch=2_000_000,
     log(f"main: all {p} columns certified; columns {list(check_cols)} equal "
         f"the f64 oracle's top-{k} (oracle {time.perf_counter() - t0:.1f} s)")
     return dict(k1=k1, k2=k2, base=base, dtable=dtable, names=names, y=y,
-                cols=cols, n_tested=int(keep.sum()), kmer_len=kmer_len)
+                cols=cols, n_tested=int(keep.sum()), kmer_len=kmer_len,
+                keep=keep, n=n)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -800,6 +919,331 @@ def phase_mp_cli(workdir, main, n_proc=2, device="cuda", batch=2_000_000,
         f"({sum(len(v) for v in a.values()) / 2**20:.1f} MiB)")
 
 
+# ---------------------------------------------------------------- phase 8
+
+class Interrupt(Exception):
+    pass
+
+
+def xnor_oracle(base, n, keep, pairs, chunk=1 << 20):
+    """numpy: for each sample pair (i, j), the fraction of kept table rows
+    on which samples i and j agree (the reference's XNOR count over the
+    number of k-mers used)."""
+    wf = (n + 63) // 64
+    raw = np.memmap(base + ".table", dtype="<u8", mode="r",
+                    offset=TABLE_HEADER.size).reshape(-1, 1 + wf)
+    samples = np.unique(pairs)
+    col = {int(s): i for i, s in enumerate(samples)}
+    agree = np.zeros(len(pairs), np.int64)
+    for s in range(0, raw.shape[0], chunk):
+        words = np.ascontiguousarray(raw[s:s + chunk][keep[s:s + chunk]])
+        bits = np.stack([(words[:, 1 + x // 64] >> np.uint64(x % 64))
+                         & np.uint64(1) for x in samples])
+        for q, (i, j) in enumerate(pairs):
+            agree[q] += int(np.count_nonzero(bits[col[i]] == bits[col[j]]))
+    return agree / float(keep.sum())
+
+
+def phase_kinship(main, workdir, batch=1 << 20, maf=0.05, device="cuda"):
+    """The kinship path at full width: `kinship_from_table` on phase 3's
+    table (N=1008, 4.2M rows, 2^20-row batches) on the dtable route (phase
+    3's cache matches the kinship filter, ceil(1008 * 0.05) = 51) and on the
+    raw-table route. Held against the plain accumulator on the same device
+    (kinship_gram_plain per batch, int64 host sum), against a numpy XNOR
+    count on 64 sampled pairs, and against a run interrupted after 3
+    batches and resumed from its checkpoint (taken every 2)."""
+    import math
+    import torch
+    from kmersgwas_tpu_torch.core import dtable as dt_mod
+    from kmersgwas_tpu_torch.ops import kinship as kin_ops
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    cuda = device == "cuda"
+    n, base = main["n"], main["base"]
+    need(math.ceil(n * maf) == 51, "the kinship filter differs from phase 3's")
+    kw = dict(device=device, maf=maf, batch_size=batch)
+    marks = []
+    kin_ops.kinship_accumulate.launches = 0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    K = km.kinship_from_table(base, dtable_cache=main["dtable"],
+                              progress=lambda r: marks.append(
+                                  time.perf_counter()), **kw)
+    wall = time.perf_counter() - t0
+    launches = kin_ops.kinship_accumulate.launches
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    n_rows = main["n_tested"]
+    n_batches = -(-n_rows // batch)
+    step_ms = [round(1e3 * (b - a), 2) for a, b in zip([t0] + marks, marks)]
+    log(f"kinship: dtable route, {n_rows} rows x N={n} in {len(marks)} "
+        f"batches: {n_rows / (marks[-1] - t0):,.0f} rows/s from the call to "
+        f"the last batch, wall {wall:.2f} s; batch ms {step_ms} (the first "
+        f"includes set-up); K7 kinship_gram launches {launches}; peak device "
+        f"memory {peak / 2**30:.2f} GiB")
+    need(len(marks) == n_batches, f"kinship: {len(marks)} batches, "
+         f"expected {n_batches}")
+    need(launches == n_batches or not cuda,
+         f"kinship: K7 launched {launches} times for {n_batches} batches")
+    need(K.shape == (n, n) and bool(np.isfinite(K).all()),
+         f"kinship: matrix {K.shape}")
+    # the plain accumulator on the same device, batch by batch
+    t0 = time.perf_counter()
+    dt = dt_mod.DTableReader(main["dtable"])
+    total = np.zeros((n, n), np.int64)
+    for s in range(0, dt.hdr.n_rows, batch):
+        planes = torch.from_numpy(np.array(
+            dt.planes[s:s + batch]).view(np.int32)).to(device)
+        g = kin_ops.kinship_gram_plain(planes, planes.shape[0])
+        total += g.cpu().numpy().astype(np.int64)[:n, :n]
+        del planes, g
+    need(dt.hdr.n_rows == n_rows, "kinship: dtable rows differ")
+    K_plain = kin_ops.normalize(total, dt.hdr.n_rows)
+    need(np.array_equal(K, K_plain),
+         f"kinship: {int((K != K_plain).sum())} entries differ from the "
+         f"plain accumulator")
+    log(f"kinship: equal to the plain accumulator on the card, bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    K_raw = km.kinship_from_table(base, **kw)
+    need(np.array_equal(K_raw, K), "kinship: the raw-table route differs")
+    log(f"kinship: raw-table route equal, wall "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(12)
+    pairs = rng.choice(n, size=(96, 2), replace=True)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]][:64]
+    t0 = time.perf_counter()
+    want = xnor_oracle(base, n, main["keep"], pairs)
+    got = K[pairs[:, 0], pairs[:, 1]]
+    need(np.array_equal(got, want),
+         f"kinship: {int((got != want).sum())} of {len(pairs)} sampled pairs "
+         f"differ from the numpy XNOR count")
+    log(f"kinship: {len(pairs)} sampled pairs equal the numpy XNOR count "
+        f"({time.perf_counter() - t0:.1f} s)")
+    ck = os.path.join(workdir, "kin_ck")
+    calls = []
+
+    def bomb(r):
+        calls.append(r)
+        if len(calls) == 3:
+            raise Interrupt
+    try:
+        km.kinship_from_table(base, dtable_cache=main["dtable"],
+                              checkpoint_path=ck, checkpoint_every=2,
+                              progress=bomb, **kw)
+        need(False, "kinship: the interrupted run was not interrupted")
+    except Interrupt:
+        pass
+    z = np.load(ck + ".npz")
+    need(bytes(z["stream"]).decode() == "dtable"
+         and int(z["n_rows"]) == 2 * batch,
+         f"kinship: checkpoint holds {int(z['n_rows'])} rows")
+    rest = []
+    K_res = km.kinship_from_table(base, dtable_cache=main["dtable"],
+                                  checkpoint_path=ck, checkpoint_every=2,
+                                  progress=rest.append, **kw)
+    need(len(rest) == n_batches - 2, f"kinship: resumed over {len(rest)} "
+         f"batches")
+    need(np.array_equal(K_res, K), "kinship: the resumed matrix differs")
+    log(f"kinship: interrupted after 3 batches, resumed from the checkpoint "
+        f"of batch 2 over {len(rest)} batches: equal")
+    return dict(k7=launches, K=K)
+
+
+# ---------------------------------------------------------------- phase 9
+
+def phase_kinship_cli(workdir, devices=("cuda", "cpu"), n=200,
+                      n_rows=200_000):
+    """`kinship --device cuda` against `--device cpu` (the CPU's int32
+    product) on a 200,000-row N=200 table: stdout byte-identical."""
+    base = os.path.join(workdir, "kin_small")
+    write_table(base, n, n_rows, 31, seed=6)
+    outs = []
+    for dev in devices:
+        cmd = [sys.executable, "-m", "kmersgwas_tpu_torch.cli", "kinship",
+               "-t", base, "--maf", "0.05", "--batch_size", "65536",
+               "--device", dev]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                              timeout=600)
+        need(proc.returncode == 0, f"kinship --device {dev} failed:\n"
+             f"{proc.stderr.decode(errors='replace')[-3000:]}")
+        log(f"kinship --device {dev}: {len(proc.stdout)} bytes of stdout "
+            f"({time.perf_counter() - t0:.1f} s)")
+        outs.append(proc.stdout)
+    need(outs[0] == outs[1], "kinship CLI stdout differs between devices")
+    need(len(outs[0].splitlines()) == n, "kinship CLI: wrong row count")
+    log(f"kinship cli: stdout byte-identical between --device {devices[0]} "
+        f"and --device {devices[1]}")
+
+
+# ---------------------------------------------------------------- phase 10
+
+def phase_kinship_mp(workdir, main, kin, n_proc=2, device="cuda",
+                     batch=1 << 20, timeout=600):
+    """`kinship-mp` in n_proc processes over gloo, all on the one card,
+    each over its span dtable: process 0's TSV byte-identical to
+    write_kinship of phase 8's one-process matrix."""
+    import socket
+    import torch
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    if device == "cuda":
+        torch.cuda.empty_cache()        # the card is shared with the ranks
+    ref = os.path.join(workdir, "kin_ref.tsv")
+    km.write_kinship(ref, kin["K"])
+    out = os.path.join(workdir, "kin_mp.tsv")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    cmd = [sys.executable, "-m", "kmersgwas_tpu_torch.cli", "kinship-mp",
+           "-t", main["base"], "--maf", "0.05", "--batch_size", str(batch),
+           "-o", out, "--device", device, "--dtable_cache", main["dtable"],
+           "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+           str(n_proc)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process_id", str(i)], cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(n_proc)]
+    try:
+        logs = [pr.communicate(timeout=timeout)[0] for pr in procs]
+    finally:
+        for pr in procs:                # a failed or hung rank: stop all
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for i, (pr, text) in enumerate(zip(procs, logs)):
+        need(pr.returncode == 0, f"kinship-mp: rank {i} exited "
+             f"{pr.returncode}:\n{text[-3000:]}")
+    log(f"kinship-mp --num_processes {n_proc} --device {device}: "
+        f"{time.perf_counter() - t0:.1f} s wall; "
+        + "; ".join(t.strip().splitlines()[-1] for t in logs))
+    a, b = open(out, "rb").read(), open(ref, "rb").read()
+    need(a == b, "kinship-mp TSV differs from the one-process kinship")
+    log(f"kinship-mp: {len(a) / 2**20:.1f} MiB TSV byte-identical between "
+        f"{n_proc} processes sharing the card and the one-process matrix")
+
+
+# ---------------------------------------------------------------- phase 11
+
+def phase_scan_step(n_batches=14, rows=2_000_000, n=1008, p=101, k=10001,
+                    device="cuda"):
+    """The plain scan step (`scan_step`, K4 on every batch) at the main
+    path's shape: device-made 2M-row batches at top-10001 with the JAX
+    scan's cand_k = max(256, k // 8) = 1250, so the early batches take
+    the full top-k fallback and, once the carried k-th settles above the
+    batches' 1250th score, the exact candidate merge. Dyadic phenotypes at
+    "default": the top-k must equal a plain running top-k, scores and
+    rows, after the last batch. Smaller arguments and device="cpu"
+    rehearse the phase without a card."""
+    import torch
+    from kmersgwas_tpu_torch.ops import scanstep as ss
+    from kmersgwas_tpu_torch.ops import score, topk
+    from kmersgwas_tpu_torch.pipeline import scan
+    min_count = scan.effective_min_count(n, 0.05, 5)
+    y = dyadic(np.random.default_rng(13), (n, p))
+    yp, ysum = score.prepare_phenotypes(y, -(-n // 128) * 128, device)
+    cuda = device == "cuda"
+    cand_k = max(256, k // 8)
+    state = topk.TopKState(
+        torch.full((p, k), float("-inf"), device=device),
+        torch.zeros((p, k), dtype=torch.int32, device=device),
+        torch.zeros((p, k), dtype=torch.int32, device=device))
+    ov = torch.full((p, k), float("-inf"), device=device)
+    orow = torch.zeros((p, k), dtype=torch.int64, device=device)
+    counts, step_ms = {}, {"exact": [], "fallback": []}
+    score.score_batch_t.launches = 0
+    for b in range(n_batches):
+        packed, pc = make_planes(rows, n, seed=5000 + b, device=device)
+        lo = torch.arange(b * rows, (b + 1) * rows, dtype=torch.int32,
+                          device=device)
+        before = dict(counts)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ss.scan_step(state, packed, pc, lo, torch.zeros_like(lo),
+                             yp, ysum, n_used=n, min_count=min_count,
+                             cand_k=cand_k, precision="default",
+                             counts=counts)
+        if cuda:
+            torch.cuda.synchronize()
+        kind = next(x for x in counts if counts[x] != before.get(x, 0))
+        step_ms[kind].append(1e3 * (time.perf_counter() - t0))
+        sc = score.scores_t_plain(packed, pc, yp, ysum, n_used=n,
+                                  min_count=min_count, precision="default")
+        v, j = torch.sort(torch.cat([ov, sc], dim=1), dim=1,
+                          descending=True, stable=True)
+        j = j[:, :k]
+        orow = torch.where(j < k, orow.gather(1, j.clamp(max=k - 1)),
+                           b * rows + j - k)
+        ov = v[:, :k].contiguous()
+        del sc, v, j
+    launches = score.score_batch_t.launches
+    got_rows = topk.decode_rows(state.row_lo.cpu().numpy(),
+                                state.row_hi.cpu().numpy())
+    log(f"scan_step: {n_batches} batches of {rows} rows, N={n} P={p} k={k} "
+        f"cand_k={cand_k}; branches {counts}; "
+        + "; ".join(f"{x} step ms median {statistics.median(ms):.2f} over "
+                    f"{len(ms)}" for x, ms in step_ms.items() if ms)
+        + f"; K4 score_t launches {launches}")
+    need(launches == n_batches or not cuda,
+         f"scan_step: K4 launched {launches} times")
+    need(counts.get("exact", 0) >= 1 and counts.get("fallback", 0) >= 1,
+         f"scan_step: both branches must run: {counts}")
+    need(torch.equal(state.scores, ov),
+         "scan_step: scores differ from the plain running top-k")
+    need(np.array_equal(got_rows, orow.cpu().numpy()),
+         "scan_step: rows differ from the plain running top-k")
+    log(f"scan_step: final top-{k} of all {p} columns equal the plain "
+        f"running top-k (scores and rows)")
+    return dict(k4=launches)
+
+
+# ---------------------------------------------------------------- phase 12
+
+def phase_score_batch(rows=2_097_152, n=1008, p=101, n_check=4096,
+                      device="cuda"):
+    """`score_batch` (K5), the row-major score function, on one flagship
+    batch of Gaussian phenotypes at "highest": (R, P), finite, and within
+    the RTOL bound of a numpy f64 computation on 4096 sampled rows.
+    Smaller arguments and device="cpu" rehearse the phase without a
+    card."""
+    import torch
+    from kmersgwas_tpu_torch.ops import bitplanes, score
+    mc = 5
+    packed, pc, yp, ysum = make_batch(rows, n, p, seed=21, pad_rows=0,
+                                      gaussian=True, device=device)
+    score.score_batch.launches = 0
+    sc = score.score_batch(packed, pc, yp, ysum, n_used=n, min_count=mc,
+                           precision="highest")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = score.score_batch.launches
+    need(launches == 1 or device != "cuda",
+         f"score_batch: K5 launched {launches} times")
+    need(sc.shape == (rows, p) and bool(torch.isfinite(sc).all()),
+         f"score_batch: shape {tuple(sc.shape)} or non-finite values")
+    idx = torch.from_numpy(np.random.default_rng(3).choice(
+        rows, n_check, replace=False)).to(device)
+    bits = bitplanes.unpack_bits(packed[idx], torch.float64).cpu().numpy()
+    y = yp.double().cpu().numpy()
+    n1 = bits.sum(axis=1)[:, None]
+    r = n * (bits @ y) - n1 * y.sum(axis=0)[None, :]
+    denom = n * n1 - n1 * n1
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = np.where(denom > 0, r * r / denom, 0.0)
+    want = np.where((n1 >= mc) & (n - n1 >= mc), want, 0.0)
+    got = sc[idx].double().cpu().numpy()
+    d = np.abs(got - want)
+    bound = RTOL * (np.abs(want) + np.abs(want).max(axis=0, keepdims=True))
+    need(bool((d <= bound).all()), f"score_batch: {int((d > bound).sum())} "
+         f"scores off the f64 oracle by up to {d.max():.3g}")
+    log(f"score_batch: ({rows}, {p}) scores, K5 score_rows launches "
+        f"{launches}; {n_check} sampled rows within {RTOL} of the f64 "
+        f"oracle (max abs diff {d.max():.3g})")
+    return dict(k5=launches)
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -831,6 +1275,11 @@ def main():
         phase_cli(workdir)
         pres = phase_mp(mres)
         phase_mp_cli(workdir, mres)
+        kin = phase_kinship(mres, workdir)
+        phase_kinship_cli(workdir)
+        phase_kinship_mp(workdir, mres, kin)
+        sres = phase_scan_step()
+        bres = phase_score_batch()
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -839,18 +1288,23 @@ def main():
     if "jax" in sys.modules:
         print("FAIL: jax was imported", file=sys.stderr)
         return 1
-    t = kres["times"]
+    t, e = kres["times"], kres["errs"]
+    rows = [("score_topw", TOPW_SOURCE, TOPW_REPLACES, mres["k1"], e[0],
+             t[0], t[1]),
+            ("score_bmax", BMAX_SOURCE, BMAX_REPLACES, mres["k2"], e[1],
+             t[2], t[3]),
+            ("score_tilemax", TILEMAX_SOURCE, TILEMAX_REPLACES, pres["k3"],
+             e[2], t[4], t[5]),
+            ("score_t", SCORE_T_SOURCE, SCORE_T_REPLACES, sres["k4"], e[3],
+             t[6], t[7]),
+            ("score_rows", SCORE_ROWS_SOURCE, SCORE_ROWS_REPLACES,
+             bres["k5"], e[4], t[8], t[9]),
+            ("kinship_gram", KINSHIP_SOURCE, KINSHIP_REPLACES, kin["k7"],
+             0.0, t[10], t[11])]
     log(json.dumps({"kernels": [
-        {"name": "score_topw", "route": "cuda", "source": TOPW_SOURCE,
-         "replaces": TOPW_REPLACES, "launches": mres["k1"],
-         "max_abs_err": kres["err1"], "ms": t[0], "plain_ms": t[1]},
-        {"name": "score_bmax", "route": "cuda", "source": BMAX_SOURCE,
-         "replaces": BMAX_REPLACES, "launches": mres["k2"],
-         "max_abs_err": kres["err2"], "ms": t[2], "plain_ms": t[3]},
-        {"name": "score_tilemax", "route": "cuda", "source": TILEMAX_SOURCE,
-         "replaces": TILEMAX_REPLACES, "launches": pres["k3"],
-         "max_abs_err": kres["err3"], "ms": t[4], "plain_ms": t[5]},
-    ]}))
+        {"name": nm, "route": "cuda", "source": src, "replaces": rep,
+         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms}
+        for nm, src, rep, n, err, ms, pms in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """CLI dispatcher: `python -m kmersgwas_tpu_torch.cli <command> [...]`.
 
-Port of kmersgwas_tpu/cli/__main__.py; `associate` and `associate-mp` are
-ported so far.
+Port of kmersgwas_tpu/cli/__main__.py; `associate`, `associate-mp`,
+`kinship` and `kinship-mp` are ported so far.
 """
 from __future__ import annotations
 
@@ -168,13 +168,83 @@ def _add_associate_mp(sub):
     p.set_defaults(func=run)
 
 
+def _add_kinship(sub):
+    p = sub.add_parser("kinship",
+                       help="kinship from k-mers table (emma_kinship_kmers)")
+    p.add_argument("-t", "--kmers_table", required=True)
+    p.add_argument("-k", "--kmer_len", type=int, required=False)
+    p.add_argument("--maf", type=float, required=True)
+    p.add_argument("--batch_size", type=int, default=1 << 20)
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard the accumulation over this many devices "
+                        "(not ported: more than 1 raises)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the Gram runs (cuda raises without a card)")
+
+    def run(a):
+        from ..pipeline import kinship as km
+        if a.devices and a.devices > 1:
+            raise NotImplementedError(
+                "kmersgwas_tpu_torch runs single-device kinship only")
+        K = km.kinship_from_table(a.kmers_table, maf=a.maf,
+                                  batch_size=a.batch_size, device=a.device)
+        for row in K:
+            sys.stdout.write("\t".join(f"{v:g}" for v in row) + "\n")
+    p.set_defaults(func=run)
+
+
+def _add_kinship_mp(sub):
+    p = sub.add_parser(
+        "kinship-mp",
+        help="multi-PROCESS kinship: run once per process with a shared "
+             "coordinator; each process streams its k-mer range "
+             "(parallel/multihost.run_distributed_kinship)")
+    p.add_argument("-t", "--kmers_table", required=True)
+    p.add_argument("--maf", type=float, required=True)
+    p.add_argument("--batch_size", type=int, default=1 << 20)
+    p.add_argument("-o", "--output", required=True,
+                   help="kinship TSV (written by process 0)")
+    p.add_argument("--dtable_cache", default=None,
+                   help="base path for the per-process device-native table "
+                        "cache (<base>.mc<min>.n<n>.p<pid>of<nproc>)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where each process accumulates (cuda raises "
+                        "without a card; process i takes card i modulo the "
+                        "count)")
+    p.add_argument("--coordinator", required=True,
+                   help="host:port of process 0")
+    p.add_argument("--num_processes", type=int, required=True)
+    p.add_argument("--process_id", type=int, required=True)
+    p.add_argument("--checkpoint", default=None,
+                   help="per-process checkpoint base (<path>.p<pid>)")
+
+    def run(a):
+        from ..parallel import multihost
+        from ..pipeline import kinship as km
+        multihost.init_distributed(coordinator_address=a.coordinator,
+                                   num_processes=a.num_processes,
+                                   process_id=a.process_id)
+        K = multihost.run_distributed_kinship(
+            a.kmers_table, maf=a.maf, batch_size=a.batch_size,
+            dtable_cache=a.dtable_cache, checkpoint_path=a.checkpoint,
+            device=a.device)
+        if a.process_id == 0:
+            km.write_kinship(a.output, K)
+        print(f"process {a.process_id}: kinship over {K.shape[0]} "
+              "accessions")
+    p.set_defaults(func=run)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="kmersgwas_tpu_torch",
-        description="k-mer GWAS association scan in PyTorch + CUDA")
+        description="k-mer GWAS association scan and kinship in PyTorch + "
+                    "CUDA")
     sub = ap.add_subparsers(dest="command", required=True)
     _add_associate(sub)
     _add_associate_mp(sub)
+    _add_kinship(sub)
+    _add_kinship_mp(sub)
     args = ap.parse_args(argv)
     return args.func(args)
 

@@ -1,6 +1,7 @@
-// Shared body of the association-score kernels (score_topw.cu, score_bmax.cu).
+// Shared body of the association-score kernels (score_topw.cu, score_bmax.cu,
+// score_tilemax.cu, score_t.cu, score_rows.cu).
 //
-// Both kernels score one tile of TILE_ROWS k-mers against one chunk of
+// Every kernel scores one tile of TILE_ROWS k-mers against one chunk of
 // TILE_COLS phenotype columns per block:
 //
 //     yigi[row][c]  = sum of y[k][c] over the set bits k of the row's packed
@@ -9,7 +10,9 @@
 //                     0 when denom <= 0 or the MAC filter fails,
 //                     -inf when popcnt == 0 (a padding row)
 //
-// which is kmersgwas_tpu/ops/score.py's fused epilogue (score.py:492-499).
+// which is kmersgwas_tpu/ops/score.py's fused epilogue (score.py:492-499);
+// score_tile<false> leaves out the -inf of padding rows, as the row-major
+// `_score_kernel` (score.py:630-644) does.
 //
 // Layout. `packed` is row-major (R, W32) uint32, one 4*W32-byte row per
 // k-mer, exactly as the host feed delivers it (no device transpose). `y` is
@@ -60,15 +63,21 @@ inline size_t tile_smem_bytes(int w32) {
          + sizeof(uint32_t) * TILE_ROWS * (w32 + 1);
 }
 
+__device__ __forceinline__ float score_value(float yigi, float n1,
+                                             float ysum, float n,
+                                             float min_count) {
+    const float r = __fsub_rn(__fmul_rn(n, yigi), __fmul_rn(n1, ysum));
+    const float denom = __fsub_rn(__fmul_rn(n, n1), __fmul_rn(n1, n1));
+    const float s = denom > 0.f ? __fdiv_rn(__fmul_rn(r, r), denom) : 0.f;
+    const bool ok = (n1 >= min_count) && (__fsub_rn(n, n1) >= min_count);
+    return ok ? s : 0.f;
+}
+
 __device__ __forceinline__ float score_epilogue(float yigi, float n1,
                                                 float ysum, float n,
                                                 float min_count) {
-    const float r = __fsub_rn(__fmul_rn(n, yigi), __fmul_rn(n1, ysum));
-    const float denom = __fsub_rn(__fmul_rn(n, n1), __fmul_rn(n1, n1));
-    float s = denom > 0.f ? __fdiv_rn(__fmul_rn(r, r), denom) : 0.f;
-    const bool ok = (n1 >= min_count) && (__fsub_rn(n, n1) >= min_count);
-    s = ok ? s : 0.f;
-    return n1 > 0.f ? s : -CUDART_INF_F;
+    return n1 > 0.f ? score_value(yigi, n1, ysum, n, min_count)
+                    : -CUDART_INF_F;
 }
 
 // Copy the tile's packed rows (contiguous in device memory) into shared
@@ -111,7 +120,9 @@ __device__ __forceinline__ void add_word(const uint32_t (&wd)[TM_R],
 }
 
 // Scores of the block's tile: s[i][j] for row row0 + tr + 32*i and column
-// c0 + 8*tc + j. Every thread of the block must call this.
+// c0 + 8*tc + j. Every thread of the block must call this. kPadInf: padding
+// rows (popcnt == 0) score -inf; without it they score as any other row.
+template <bool kPadInf = true>
 __device__ __forceinline__ void score_tile(
         const uint32_t* __restrict__ packed, const float* __restrict__ popcnt,
         const float* __restrict__ y, const float* __restrict__ ysum,
@@ -158,8 +169,11 @@ __device__ __forceinline__ void score_tile(
         const float n1 = popcnt[row0 + tr + 32 * i];
 #pragma unroll
         for (int j = 0; j < TM_C; ++j)
-            s[i][j] = score_epilogue(acc[i][j], n1, ysum[c0 + tc * 8 + j],
-                                     n_used, min_count);
+            s[i][j] = kPadInf
+                ? score_epilogue(acc[i][j], n1, ysum[c0 + tc * 8 + j],
+                                 n_used, min_count)
+                : score_value(acc[i][j], n1, ysum[c0 + tc * 8 + j], n_used,
+                              min_count);
     }
 }
 

@@ -1,12 +1,14 @@
 """Build and bind the hand-written CUDA kernels of csrc/.
 
-At first use, `library()` compiles every source of csrc/ with nvcc into one
-shared library with a plain C interface,
+At first use, `library()` compiles every source of csrc/ with nvcc, one
+process per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/libkgt_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c -o build/<hash>/<source>.o csrc/<source>
 
-and loads it with ctypes. The file name carries a hash of the sources and
+links the objects into one shared library with a plain C interface
+(`nvcc -shared -o build/libkgt_torch_<hash>.so build/<hash>/*.o`) and
+loads it with ctypes. The file name carries a hash of the sources and
 flags, so an edited source is rebuilt and a stale library is never loaded.
 Nothing is built or loaded at import: the CPU tests import this module on
 machines without nvcc.
@@ -29,11 +31,13 @@ from dataclasses import dataclass
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("score_topw.cu", "score_bmax.cu", "score_tilemax.cu")
+SOURCES = ("score_topw.cu", "score_bmax.cu", "score_tilemax.cu",
+           "score_t.cu", "score_rows.cu", "kinship_gram.cu")
 HEADERS = ("score_common.cuh", "tile_top3.cuh")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)     # looked at after PATH
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 # block tile of the kernels (csrc/score_common.cuh TILE_ROWS / TILE_COLS):
 # batch rows must be a multiple of TILE_ROWS, and the top-3 captures of
@@ -79,20 +83,33 @@ def library() -> KernelLib:
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout.strip()
     version = version.splitlines()[-1] if version else "unknown"
-    path = os.path.join(BUILD, f"libkgt_torch_{_digest()}.so")
+    digest = _digest()
+    path = os.path.join(BUILD, f"libkgt_torch_{digest}.so")
     build_s, log = None, ""
     if not os.path.exists(path):
-        os.makedirs(BUILD, exist_ok=True)
-        tmp = f"{path}.tmp{os.getpid()}"
+        objdir = os.path.join(BUILD, f"{digest}.{os.getpid()}")
+        os.makedirs(objdir, exist_ok=True)
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp,
-             *(os.path.join(CSRC, s) for s in SOURCES)],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        objs = [os.path.join(objdir, s + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        outs = [(s, pr.communicate()[0], pr.returncode)
+                for s, pr in zip(SOURCES, procs)]
+        log = "".join(out for _, out, _ in outs)
+        bad = [(s, rc) for s, _, rc in outs if rc != 0]
+        if bad:
+            raise RuntimeError(f"nvcc failed on {bad}:\n{log}")
+        tmp = f"{path}.tmp{os.getpid()}"
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{log}")
         os.replace(tmp, path)                 # atomic: no half-written .so
+        shutil.rmtree(objdir, ignore_errors=True)
         build_s = time.perf_counter() - t0
     lib = ctypes.CDLL(path)
     lib.kgt_score_topw.restype = _I
@@ -115,6 +132,19 @@ def library() -> KernelLib:
         _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
         _P, _P, _P, _P, _P, _P,        # tmax, targ, tmax2, targ2, tmax3, targ3
         _P, _P, _P,                    # n2, n3, cnt
+        _P]                            # stream
+    for name in ("kgt_score_t", "kgt_score_rows"):
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = [
+            _P, _P, _P, _P,            # packed, popcnt, y, ysum
+            _LL, _I, _I, _I, _F, _F,   # n_rows, w32, p, p_pad, n, min_count
+            _P,                        # scores
+            _P]                        # stream
+    lib.kgt_kinship_gram.restype = _I
+    lib.kgt_kinship_gram.argtypes = [
+        _P, _LL, _I,                   # packed, n_rows, w32
+        _P,                            # acc
         _P]                            # stream
     lib.kgt_error_string.restype = ctypes.c_char_p
     lib.kgt_error_string.argtypes = [_I]

@@ -25,6 +25,14 @@ def unpack_bits(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return bits.to(dtype).reshape(*packed.shape[:-1], packed.shape[-1] * 32)
 
 
+def unpack_bits_pm1(packed: torch.Tensor) -> torch.Tensor:
+    """(..., W) int32 planes -> (..., W*32) int8 in {-1, +1} (bit b ->
+    2b-1), LSB-first: the operand of the exact kinship Gram."""
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = ((packed[..., None] >> shifts) & 1).to(torch.int8)
+    return (bits * 2 - 1).reshape(*packed.shape[:-1], packed.shape[-1] * 32)
+
+
 def popcount_rows(packed: torch.Tensor) -> torch.Tensor:
     """Per-row popcount of int32 planes -> float32 (SWAR bit count on the
     words widened to int64, so the sign bit needs no special case)."""

@@ -1,0 +1,157 @@
+"""EMMA kinship from the k-mers table as an exact integer Gram (port of
+kmersgwas_tpu/ops/kinship.py).
+
+Reference (src/kmers_multiple_databases.cpp:418-438 + emma_kinship_kmers.cpp):
+for every MAC-passing k-mer row g, K[i][j] += 1 ^ g_i ^ g_j (an XNOR count),
+then normalize by the number of k-mers used and set the diagonal to 1.
+
+With the bits encoded as A in {-1, +1} int8,
+    (A^T A)[i, j] = #match - #mismatch,   xnor_count = (n_rows + A^T A) / 2,
+and int8 x int8 -> int32 products are exact, so the result matches the
+reference's integer arithmetic bit for bit before the final float divide.
+Padded sample lanes (0 bits, so -1) touch only padded rows and columns of
+the Gram, which the accumulator slices away.
+
+`kinship_accumulate` sends a CPU tensor to the plain version and a CUDA
+tensor to the kinship_gram kernel (csrc/kinship_gram.cu); there is no
+other route and no fallback. It counts its launches
+(`kinship_accumulate.launches`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _cuda
+from .bitplanes import unpack_bits_pm1
+
+# the device int32 partial is flushed into the host int64 total before it
+# could overflow: each row adds at most 1 to any entry
+SPILL_ROWS = 1 << 30
+
+
+def _gram(a: torch.Tensor) -> torch.Tensor:
+    """a^T a, int32, of an (rows, n_pad) int8 matrix: torch._int_mm on the
+    card, an int32 product on the CPU (exact: every entry is at most
+    rows <= 2^30 in magnitude, the accumulator's spill bound)."""
+    if not a.is_cuda:
+        a = a.to(torch.int32)
+        return a.T @ a
+    # _int_mm wants k (rows) a positive multiple of 8 (zero rows are
+    # neutral: 0 * x = 0), m = n_pad > 16 and n = n_pad a multiple of 8
+    # (n_pad is a multiple of 128), and its second operand contiguous
+    pad = -a.shape[0] % 8 or (8 if a.shape[0] == 0 else 0)
+    if pad:
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+    return torch._int_mm(a.T, a)
+
+
+def kinship_gram_plain(packed: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """A^T A, (n_pad, n_pad) int32, over rows [0, n_rows) of (R, W32) int32
+    planes: the +-1 unpack, then an exact integer product. The plain
+    version of kinship_accumulate."""
+    return _gram(unpack_bits_pm1(packed[:n_rows]))
+
+
+def kinship_accumulate(acc: torch.Tensor, packed: torch.Tensor,
+                       n_rows: int | None = None) -> torch.Tensor:
+    """acc (N_pad, N_pad) int32 += A^T A over rows [0, n_rows) of `packed`
+    (R, W32) int32 planes (default: all R). Rows past n_rows contribute
+    nothing, so a fixed-size staging buffer may carry a stale tail. On the
+    card the kinship_gram kernel adds in place; returns acc."""
+    rows, w32 = packed.shape
+    n_rows = rows if n_rows is None else int(n_rows)
+    if not 0 <= n_rows <= rows:
+        raise ValueError(f"n_rows ({n_rows}) must be in [0, {rows}]")
+    if acc.shape != (w32 * 32, w32 * 32) or acc.dtype != torch.int32:
+        raise ValueError(f"acc must be a ({w32 * 32}, {w32 * 32}) int32 "
+                         "tensor")
+    if packed.device.type == "cpu" and acc.device.type == "cpu":
+        acc += kinship_gram_plain(packed, n_rows)
+        return acc
+    for t in (packed, acc):
+        if t.device.type != "cuda":
+            raise ValueError(f"tensors on {t.device} have no kernel: CPU "
+                             "tensors take the plain version, CUDA tensors "
+                             "the kernel")
+    if acc.device != packed.device or not acc.is_contiguous():
+        raise ValueError("acc must be contiguous, on the planes' device")
+    if packed.dtype != torch.int32 or not packed.is_contiguous() \
+            or packed.data_ptr() % 16 or w32 % 4:
+        raise ValueError("packed must be a contiguous, 16-byte aligned "
+                         "(R, W32) int32 tensor with W32 a multiple of 4")
+    if n_rows == 0:
+        return acc
+    dev = packed.device
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = lib.lib.kgt_kinship_gram(
+            packed.data_ptr(), n_rows, w32, acc.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "kinship_gram")
+    kinship_accumulate.launches += 1
+    return acc
+
+
+kinship_accumulate.launches = 0
+
+
+def kinship_accumulate_masked(acc: torch.Tensor, packed: torch.Tensor,
+                              valid: torch.Tensor) -> torch.Tensor:
+    """acc + A^T A where rows with valid == 0 contribute nothing (plain
+    only; kmersgwas_tpu/ops/kinship.py:34-46): zeroing invalid rows
+    restores exactness under +-1, so batches may be padded to any fixed
+    shape. Returns a new tensor."""
+    return acc + _gram(unpack_bits_pm1(packed)
+                       * valid[:, None].to(torch.int8))
+
+
+def kinship_init(n_pad: int, device) -> torch.Tensor:
+    return torch.zeros((n_pad, n_pad), dtype=torch.int32, device=device)
+
+
+class KinshipAccumulator:
+    """Streaming accumulator: an int32 partial on the device, spilled into
+    an int64 host total before it can overflow (port of kmersgwas_tpu/ops/
+    kinship.py KinshipAccumulator)."""
+
+    def __init__(self, n_used: int, n_pad: int, device):
+        self.n_used = n_used
+        self.n_pad = n_pad
+        self.total = np.zeros((n_used, n_used), dtype=np.int64)
+        self.device_acc = kinship_init(n_pad, device)
+        self.rows_in_acc = 0
+        self.n_rows = 0
+
+    def add(self, packed_dev: torch.Tensor, n_rows: int | None = None) -> None:
+        """Accumulate rows [0, n_rows) of a batch (default: all of it)."""
+        rows = int(packed_dev.shape[0]) if n_rows is None else int(n_rows)
+        if self.rows_in_acc + rows > SPILL_ROWS:
+            self.flush()
+        kinship_accumulate(self.device_acc, packed_dev, rows)
+        self.rows_in_acc += rows
+        self.n_rows += rows
+
+    def flush(self) -> None:
+        if self.rows_in_acc:
+            part = self.device_acc.cpu().numpy().astype(np.int64)
+            self.total += part[: self.n_used, : self.n_used]
+            self.device_acc.zero_()
+            self.rows_in_acc = 0
+
+    def finalize(self) -> np.ndarray:
+        """Normalized kinship (N, N) float64, diagonal forced to 1
+        (emma_kinship_kmers.cpp:95-102)."""
+        self.flush()
+        return normalize(self.total, self.n_rows)
+
+
+def normalize(total: np.ndarray, n_rows: int) -> np.ndarray:
+    """int64 sum of A^T A over n_rows rows -> the kinship matrix: the XNOR
+    count (n_rows + total) / 2, over n_rows, in f64; diagonal 1."""
+    if n_rows == 0:
+        raise ValueError("no k-mers accumulated into kinship")
+    xnor = (n_rows + total) / 2.0
+    k = xnor / float(n_rows)
+    np.fill_diagonal(k, 1.0)
+    return k

@@ -1,5 +1,9 @@
-"""The scan's per-batch step (port of kmersgwas_tpu/ops/scanstep.py
-`scan_step_compact`, :379-662, and the buffered state it carries), in its
+"""The scan's per-batch steps (port of kmersgwas_tpu/ops/scanstep.py).
+
+`scan_step` (:38-91) is the plain step: score the whole batch (the
+score_t kernel), take the batch's top-cand_k and merge it into the carried
+top-k, falling back to the batch's full top-k when that merge cannot be
+proven exact. `scan_step_compact` (:379-662) carries a buffered state, in
 two candidate modes:
   cand_w — the score_topw kernel returns each column's top-W (score, lane)
            candidates and a guard (the single-process scan's step);
@@ -68,6 +72,52 @@ def _top_merge(vs, los, his, k: int):
     nv, j = topk_ops.top_k(cat_v, k)
     return (nv, torch.cat(los, dim=1).gather(1, j),
             torch.cat(his, dim=1).gather(1, j))
+
+
+def _merge(state: topk_ops.TopKState, v, blo, bhi) -> topk_ops.TopKState:
+    """Stable top-k of (state, batch candidates): state entries win ties."""
+    k = state.scores.shape[1]
+    return topk_ops.TopKState(*_top_merge([state.scores, v],
+                                          [state.row_lo, blo],
+                                          [state.row_hi, bhi], k))
+
+
+def scan_step(state: topk_ops.TopKState, packed, popcnt, row_lo, row_hi,
+              y_padded, y_sum, *, n_used: int, min_count: int,
+              block: int = 16, cand_k: int | None = None,
+              precision: str = "default",
+              counts: dict | None = None) -> topk_ops.TopKState:
+    """One streamed batch -> the merged top-k state (a new TopKState).
+
+    packed (R, W32) int32 planes, popcnt (R,) f32 with 0 marking padding
+    rows, row_lo/row_hi (R,) int32 encoded row ids, y_padded (N_pad, P)
+    f32, all on one device. Scores come from score_ops.score_batch_t (the
+    score_t kernel on the card, its plain version on the CPU).
+
+    cand_k: optional candidate cap. Only the batch's top-cand_k is merged;
+    the merge is exact when the post-merge k-th score strictly exceeds the
+    cand_k-th batch score (every batch element that could displace the
+    state was among the candidates; equal scores never displace). That
+    check is one device flag brought to the host; where it fails (state
+    not yet full, or a tie at the boundary) the step takes the batch's full
+    top-k instead, as the reference's `lax.cond` does. counts: optional
+    dict; the step adds 1 to "exact" or "fallback" (cand_k steps only)."""
+    sc = score_ops.score_batch_t(packed, popcnt, y_padded, y_sum,
+                                 n_used=n_used, min_count=min_count,
+                                 precision=precision)
+    k = state.scores.shape[1]
+
+    def full_merge():
+        v, i = topk_ops.blocked_top_k(sc, k, block=block)
+        return _merge(state, v, row_lo[i], row_hi[i])
+
+    if not cand_k or cand_k >= k:
+        return full_merge()
+    v, i = topk_ops.blocked_top_k(sc, cand_k, block=block)
+    merged = _merge(state, v, row_lo[i], row_hi[i])
+    exact = bool((merged.scores[:, -1] > v[:, -1]).all())    # the one sync
+    _count(counts, "exact" if exact else "fallback")
+    return merged if exact else full_merge()
 
 
 def _clear_buffer(st: BufferedTopKState, rows=slice(None)) -> None:

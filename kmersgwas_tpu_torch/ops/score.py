@@ -8,7 +8,9 @@ N1 = popcount(g) (src/kmers_multiple_databases.cpp:327-363):
     score = (N*yigi - N1*sum(y))^2 / (N*N1 - N1^2)     (0 if N1 or N0 < mac)
 
 Scores are laid out transposed, (P, R), with padding rows (popcnt == 0) at
--inf, as the scan step consumes them.
+-inf, as the scan step consumes them; `score_batch` alone gives the
+row-major (R, P) scores of the reference's `score_batch`, with no padding
+mask.
 
 Precision is explicit and never inherited from torch's global flags:
   "highest" — f32 products, f32 sums;
@@ -58,17 +60,42 @@ def gemm_operand(y_padded: torch.Tensor, precision: str) -> torch.Tensor:
                      f"got {precision!r}")
 
 
-def score_epilogue_t(yigi_t, popcnt, y_sum, n_used: int, min_count: int):
-    """(P, R) yigi -> (P, R) scores, padding rows -inf (the epilogue of
-    kmersgwas_tpu/ops/score.py:492-499)."""
+def _epilogue(yigi, n1, y_sum, n_used: int, min_count: int):
+    """The score of yigi given n1 and y_sum broadcast to its layout; 0
+    where the MAC test fails."""
     n = float(n_used)
-    n1 = popcnt[None, :]
-    r = n * yigi_t - n1 * y_sum[:, None]
+    r = n * yigi - n1 * y_sum
     denom = n * n1 - n1 * n1
     score = torch.where(denom > 0, (r * r) / denom, 0.0)
     ok = (n1 >= min_count) & ((n - n1) >= min_count)
-    score = torch.where(ok, score, 0.0)
+    return torch.where(ok, score, 0.0)
+
+
+def score_epilogue(yigi, popcnt, y_sum, n_used: int, min_count: int):
+    """(R, P) yigi -> (R, P) scores, 0 where the MAC test fails, no padding
+    mask (kmersgwas_tpu/ops/score.py `_score_epilogue`)."""
+    return _epilogue(yigi, popcnt[:, None], y_sum[None, :], n_used,
+                     min_count)
+
+
+def score_epilogue_t(yigi_t, popcnt, y_sum, n_used: int, min_count: int):
+    """(P, R) yigi -> (P, R) scores, padding rows -inf (the epilogue of
+    kmersgwas_tpu/ops/score.py:492-499)."""
+    n1 = popcnt[None, :]
+    score = _epilogue(yigi_t, n1, y_sum[:, None], n_used, min_count)
     return torch.where(n1 > 0, score, float("-inf"))
+
+
+def scores_plain(packed, popcnt, y_padded, y_sum, *, n_used: int,
+                 min_count: int, precision: str = "default"):
+    """Plain row-major scores (R, P): unpack, one f32 matmul, epilogue (the
+    function of kmersgwas_tpu/ops/score.py `score_batch`)."""
+    y = gemm_operand(y_padded, precision)
+    if packed.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    g = unpack_bits(packed, torch.float32)                # (R, N_pad)
+    return score_epilogue(torch.matmul(g, y), popcnt, y_sum, n_used,
+                          min_count).contiguous()
 
 
 def scores_t_plain(packed, popcnt, y_padded, y_sum, *, n_used: int,
@@ -210,6 +237,63 @@ def _require_cuda(t: torch.Tensor) -> None:
         raise ValueError(f"tensors on {t.device} have no kernel: CPU "
                          "tensors take the plain version, CUDA tensors "
                          "the kernel")
+
+
+def _scores_kernel(entry: str, packed, popcnt, y_padded, y_sum, *,
+                   n_used: int, min_count: int, precision: str, transposed):
+    """Launch kgt_score_t (-> (P, R)) or kgt_score_rows (-> (R, P))."""
+    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
+                                                y_sum, precision)
+    dev = packed.device
+    scores = torch.empty((p, rows) if transposed else (rows, p),
+                         dtype=torch.float32, device=dev)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = getattr(lib.lib, entry)(
+            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
+            ys.data_ptr(), rows, w32, p, p_pad, float(n_used),
+            float(min_count), scores.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, entry)
+    return scores
+
+
+def score_batch_t(packed, popcnt, y_padded, y_sum, *, n_used: int,
+                  min_count: int, precision: str = "default"):
+    """Transposed scores (csrc/score_t.cu; replaces kmersgwas_tpu
+    score_batch_t_pallas): -> (P, R) f32, padding rows (popcnt == 0) at
+    -inf. The scoring of the plain scan step (ops/scanstep.scan_step)."""
+    if packed.device.type == "cpu":
+        return scores_t_plain(packed, popcnt, y_padded, y_sum, n_used=n_used,
+                              min_count=min_count, precision=precision)
+    _require_cuda(packed)
+    out = _scores_kernel("kgt_score_t", packed, popcnt, y_padded, y_sum,
+                         n_used=n_used, min_count=min_count,
+                         precision=precision, transposed=True)
+    score_batch_t.launches += 1
+    return out
+
+
+score_batch_t.launches = 0
+
+
+def score_batch(packed, popcnt, y_padded, y_sum, *, n_used: int,
+                min_count: int, precision: str = "default"):
+    """Row-major scores (csrc/score_rows.cu; replaces kmersgwas_tpu
+    score_batch_pallas): -> (R, P) f32, 0 where the MAC test fails and no
+    padding mask."""
+    if packed.device.type == "cpu":
+        return scores_plain(packed, popcnt, y_padded, y_sum, n_used=n_used,
+                            min_count=min_count, precision=precision)
+    _require_cuda(packed)
+    out = _scores_kernel("kgt_score_rows", packed, popcnt, y_padded, y_sum,
+                         n_used=n_used, min_count=min_count,
+                         precision=precision, transposed=False)
+    score_batch.launches += 1
+    return out
+
+
+score_batch.launches = 0
 
 
 def score_batch_t_topw(packed, popcnt, y_padded, y_sum, thresh, *,

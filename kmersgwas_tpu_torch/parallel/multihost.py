@@ -1,5 +1,6 @@
-"""Multi-process association scan (port of kmersgwas_tpu/parallel/
-multihost.py: `run_distributed_scan` and the helpers it runs).
+"""Multi-process association scan and kinship (port of kmersgwas_tpu/
+parallel/multihost.py: `run_distributed_scan`, `run_distributed_kinship`
+and the helpers they run).
 
 Topology: one process per device. Process `pid` of `n_proc` owns
 `torch.device("cuda", pid % torch.cuda.device_count())` (or the CPU) and
@@ -9,14 +10,19 @@ the `cand_c` scan step (ops/scanstep.scan_step_compact, score_tilemax
 kernel) on its own batches and keeps its own buffered top-k state; states
 meet once, at finalize (parallel/sharding.finalize_distributed).
 
+The kinship driver streams each span into its own accumulator with no
+collective until the end, where the (N, N) int64 totals and the row counts
+are summed.
+
 Every collective carries host data, so the transport is torch.distributed
 with the gloo backend on CPU tensors: a had-data flag per step (the
-dynamic lockstep), the final state gather, the pattern-hash union and the
-tested-count sum. Two processes may share one card.
+dynamic lockstep), the final state gather, the pattern-hash union, the
+tested-count sum and the kinship totals. Two processes may share one card.
 """
 from __future__ import annotations
 
 import math
+import os
 from collections import deque
 
 import numpy as np
@@ -27,10 +33,12 @@ from kmersgwas_tpu.core import formats
 from kmersgwas_tpu.core.table import KmersTableReader
 
 from ..ops import _cuda
+from ..ops import kinship as kin_ops
 from ..ops import scanstep as ss
 from ..ops import score as score_ops
 from ..pipeline import checkpoint as ckpt
 from ..pipeline import feed as feed_mod
+from ..pipeline import kinship as kin_mod
 from ..pipeline.scan import _PatternCounter
 from ..utils import drain, require_device, step_event
 from . import sharding as shard_mod
@@ -90,14 +98,17 @@ def host_row_span(table_base: str, host_id: int, n_hosts: int):
     return start, end
 
 
-# port of kmersgwas_tpu.parallel.multihost._span_dtable (scan stage only)
+# port of kmersgwas_tpu.parallel.multihost._span_dtable
 def _span_dtable(table_base: str, cache_base: str, names_to_use,
                  min_count: int, n_used: int, pid: int, n_proc: int,
-                 span_lo: int, span_hi: int):
+                 span_lo: int, span_hi: int, rebuild_stale: bool = True):
     """This process's .dtable cache of its span, built on first use. With
     several processes the file name carries the filter and the topology
     (`<base>.mc<min_count>.n<n_used>.p<pid>of<nproc>`), so a resized
-    cluster builds fresh span caches instead of reading mis-spanned ones."""
+    cluster builds fresh span caches instead of reading mis-spanned ones.
+    rebuild_stale=False: an existing cache built for another filter or
+    subset is left alone and None returned (the plain-named
+    single-process cache may belong to another stage)."""
     from ..core import dtable as dt_mod
     my_cache = (f"{cache_base}.mc{min_count}.n{n_used}.p{pid}of{n_proc}"
                 if n_proc > 1 else str(cache_base))
@@ -107,6 +118,8 @@ def _span_dtable(table_base: str, cache_base: str, names_to_use,
                            names_hash=dt_mod.names_hash_of(used_names))
     if dt is not None:
         return dt
+    if os.path.exists(my_cache) and not rebuild_stale:
+        return None
     dt_mod.build_dtable(table_base, my_cache, names_to_use=names_to_use,
                         min_count=min_count, start_row=span_lo,
                         end_row=span_hi)
@@ -287,3 +300,68 @@ def run_distributed_scan(table_base: str, pheno_accessions, pheno_values,
         np.array([n_tested_local], np.int64)).sum())
         if n_proc > 1 else n_tested_local)
     return per_pheno, n_tested, n_patterns
+
+
+def run_distributed_kinship(table_base: str, *, device, maf: float = 0.05,
+                            batch_size: int = 1 << 20, names_to_use=None,
+                            dtable_cache: str | None = None,
+                            checkpoint_path: str | None = None,
+                            checkpoint_every: int = 50, progress=None):
+    """Multi-process kinship: every process calls this after
+    init_distributed(). Each process streams only its contiguous k-mer
+    range (host_row_span), over its span dtable when `dtable_cache` is
+    given, into its own accumulator on its own device (`device` "cuda" or
+    "cpu"; "cuda" without a card raises); the (N, N) int64 totals and the
+    row counts are summed across processes at the end (integer sums: the
+    reference's f64 sum is exact below 2^53, so the matrix is the same).
+    Returns the normalized kinship, identical on every process.
+
+    checkpoint_path: per-process checkpoints `<path>.p<pid>` of the total
+    and the span position, stamped with the topology (n_proc, span_lo,
+    span_hi, table_rows, n_used); a crashed process resumes from its last
+    save while the others rerun, and a resume under another topology is
+    refused.
+
+    Reference: kmersgwas_tpu/parallel/multihost.py:438-549,
+    src/emma_kinship_kmers.cpp:77-111."""
+    n_proc, pid = shard_mod.world()
+    dev = require_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", pid % torch.cuda.device_count())
+    reader = KmersTableReader(table_base, names_to_use=names_to_use)
+    n_used = reader.n_used
+    min_count = math.ceil(n_used * maf)
+    my_lo, my_hi = host_row_span(table_base, pid, n_proc)
+    acc = kin_ops.KinshipAccumulator(n_used=n_used, n_pad=reader.w32 * 32,
+                                     device=dev)
+    dt = None
+    if dtable_cache:
+        dt = _span_dtable(table_base, dtable_cache, names_to_use, min_count,
+                          n_used, pid, n_proc, my_lo, my_hi,
+                          rebuild_stale=n_proc > 1)
+    stream = "dtable" if dt is not None else "table"
+    my_ckpt = f"{checkpoint_path}.p{pid}" if checkpoint_path else None
+    meta = {"n_proc": n_proc, "span_lo": my_lo, "span_hi": my_hi,
+            "table_rows": reader.n_rows_total, "n_used": n_used}
+    span_start = 0 if dt is not None else my_lo
+    start_row = span_start
+    if my_ckpt:
+        resumed = ckpt.load_kinship_state(my_ckpt, stream=stream, meta=meta)
+        if resumed is not None:
+            acc.total, acc.n_rows, start_row = resumed
+            start_row = max(start_row, span_start)
+    items = (kin_mod.dtable_planes(dt, batch_size, start_row=start_row)
+             if dt is not None else
+             kin_mod.table_planes(reader, batch_size, min_count,
+                                  start_row=start_row, end_row=my_hi))
+    kin_mod.accumulate_stream(acc, items, dev, batch_size=batch_size,
+                              w32=reader.w32, checkpoint_path=my_ckpt,
+                              checkpoint_every=checkpoint_every,
+                              stream=stream, meta=meta, progress=progress)
+    acc.flush()
+    total, n_rows = acc.total, acc.n_rows
+    if n_proc > 1:
+        total = shard_mod.all_gather_np(total).sum(axis=0)
+        n_rows = int(shard_mod.all_gather_np(
+            np.array([n_rows], np.int64)).sum())
+    return kin_ops.normalize(total, n_rows)

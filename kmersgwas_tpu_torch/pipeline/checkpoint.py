@@ -1,13 +1,14 @@
-"""Checkpoint/resume of the streaming scans (port of the scan half of
-kmersgwas_tpu/pipeline/checkpoint.py, and of the per-process checkpoints
-of kmersgwas_tpu/parallel/multihost.run_distributed_scan).
+"""Checkpoint/resume of the streaming scans and of the kinship accumulator
+(port of kmersgwas_tpu/pipeline/checkpoint.py, and of the per-process
+checkpoints of kmersgwas_tpu/parallel/multihost.run_distributed_scan).
 
 The npz fields are the JAX package's, so a checkpoint written by either
 package resumes in the other: `scores`, `row_lo`, `row_hi`, `next_row`,
 `n_tested`, `stream`, `meta_keys`, `meta_vals` for the single-process
 scan; the BufferedTopKState fields with a leading local-device axis plus
 `next_row`, `n_tested`, `stream` (bytes) and the meta keys for one process
-of the multi-process scan.
+of the multi-process scan; `total`, `n_rows`, `next_row`, `stream` (bytes)
+and the meta keys for kinship (single- or multi-process).
 """
 from __future__ import annotations
 
@@ -96,6 +97,33 @@ def load_distributed_state(path: str, stream: str, meta: dict, device):
             f"checkpoint files to restart clean")
     return (convert.distributed_state_from_numpy(z, device),
             int(z["next_row"]), int(z["n_tested"]))
+
+
+def save_kinship_state(path: str, total: np.ndarray, n_rows: int,
+                       next_row: int, stream: str = "table",
+                       meta: dict | None = None) -> None:
+    """Copy of kmersgwas_tpu.pipeline.checkpoint.save_kinship_state: the
+    int64 host total, the rows accumulated, and the position after the last
+    batch; `stream` tags whether next_row is a .table or a .dtable row, and
+    `meta` is the config/topology fingerprint a resume must match."""
+    _atomic_savez(path, total=total, n_rows=np.int64(n_rows),
+                  next_row=np.int64(next_row),
+                  stream=np.bytes_(stream.encode()), **meta_arrays(meta))
+
+
+def load_kinship_state(path: str, stream: str = "table",
+                       meta: dict | None = None):
+    """-> (total int64, n_rows, next_row), or None when the checkpoint is
+    absent or indexes the other stream (copy of kmersgwas_tpu.pipeline.
+    checkpoint.load_kinship_state); refuses a conflicting fingerprint."""
+    if not os.path.exists(_norm(path)):
+        return None
+    z = np.load(_norm(path))
+    tag = bytes(z["stream"]).decode() if "stream" in z else "table"
+    if tag != stream:
+        return None               # checkpoint from the other stream route
+    check_meta(z, meta, _norm(path))
+    return z["total"], int(z["n_rows"]), int(z["next_row"])
 
 
 def meta_arrays(meta: dict | None) -> dict:

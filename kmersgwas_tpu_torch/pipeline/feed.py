@@ -6,13 +6,16 @@ to the device.
 jax) with the same contract (tests/test_feed.py): a full batch is the raw
 memmap slice, the padded tail has zeroed rows and popcounts, and
 `pos_after` is the exact dtable row index after the batch. `table_feed`
-gives the raw table's MAC-filtered batches the same shape.
+gives the raw table's MAC-filtered batches the same shape. `kinship_feed`
+(a copy of the JAX package's) yields the dtable's planes alone, for the
+kinship accumulator.
 
 Host-to-device copies are asynchronous only from pinned memory, so batches
 go to the card through a `PinnedRing`: a few pinned staging buffers, each
 guarded by a CUDA event recorded after its copy was enqueued, so a buffer
-is never overwritten while its copy is in flight. `device_batches` runs a
-feed and its staging on a prefetch thread.
+is never overwritten while its copy is in flight. `device_batches` (scan
+batches) and `device_planes` (kinship planes) run a feed and its staging on
+a prefetch thread.
 """
 from __future__ import annotations
 
@@ -132,6 +135,42 @@ def table_feed(reader, batch_rows: int, pad_to: int, min_count: int, *,
         yield r, packed, popcnt, lo, hi, int(b.row_index[-1]) + 1, pats
 
 
+# copy of kmersgwas_tpu.pipeline.feed.kinship_feed
+def kinship_feed(dt, batch_size: int, *, start_row: int = 0,
+                 readahead: bool = True):
+    """Yield (batch_start, n_rows, planes) memmap slices with readahead for
+    the kinship accumulator: zero-copy (the staging copy is the single
+    byte-touch); pair with a prefetch thread so page-in overlaps the
+    device GEMM."""
+    hdr = dt.hdr
+    plane_bytes = hdr.w32 * 4
+    fd = os.open(dt.path, os.O_RDONLY) if readahead else None
+    planes_off = dt.planes.offset
+
+    def advise(row0: int) -> None:
+        if fd is None or row0 >= hdr.n_rows:
+            return
+        n = min(batch_size, hdr.n_rows - row0)
+        try:
+            os.posix_fadvise(fd, planes_off + row0 * plane_bytes,
+                             n * plane_bytes, os.POSIX_FADV_WILLNEED)
+        except OSError:
+            pass
+
+    try:
+        advise(start_row)
+        for s in range(start_row, hdr.n_rows, batch_size):
+            e = min(s + batch_size, hdr.n_rows)
+            advise(e)
+            planes = dt.planes[s:e]
+            stride = max(1, 4096 // plane_bytes)
+            np.add.reduce(planes[::stride, 0], dtype=np.uint64)  # warm pages
+            yield s, e - s, planes
+    finally:
+        if fd is not None:
+            os.close(fd)
+
+
 # copy of kmersgwas_tpu.pipeline.scan._prefetch
 def _prefetch(iterator, depth: int = 2):
     """Run `iterator` on a background thread, buffering `depth` items, so
@@ -170,8 +209,11 @@ def device_batches(batches, device: torch.device, pad_to: int, w32: int,
     card the batches go through a PinnedRing, allocated here (set-up, not
     stream time), and their copies are enqueued, on the current stream, as
     each is taken."""
-    ring = (PinnedRing(depth + 2, pad_to, w32) if device.type == "cuda"
-            else None)
+    ring = (PinnedRing(depth + 2, [((pad_to, w32), torch.int32),
+                                   ((pad_to,), torch.float32),
+                                   ((pad_to,), torch.int32),
+                                   ((pad_to,), torch.int32)])
+            if device.type == "cuda" else None)
 
     def stage(item):
         r, packed, popcnt, lo, hi, pos_after, pats = item
@@ -185,6 +227,28 @@ def device_batches(batches, device: torch.device, pad_to: int, w32: int,
                                                         depth))
 
 
+def device_planes(feed, device: torch.device, rows: int, w32: int,
+                  depth: int = 2):
+    """Run a feed of (r, planes, pos_after) items, planes (r, w32) uint32
+    with r <= rows, and the staging of the planes on a prefetch thread,
+    `depth` batches ahead. Returns an iterator of (r, planes on `device` as
+    int32, pos_after). On the card the planes arrive in a (rows, w32)
+    buffer of a PinnedRing whose rows past r are stale (the kinship kernel
+    reads only the first r); on the CPU they are an (r, w32) copy."""
+    ring = (PinnedRing(depth + 2, [((rows, w32), torch.int32)])
+            if device.type == "cuda" else None)
+
+    def stage(item):
+        r, planes, pos_after = item
+        staged = (ring.stage(planes) if ring else torch.from_numpy(
+            np.array(planes, np.uint32).view(np.int32)))
+        return r, staged, pos_after
+
+    return ((r, ring.upload(staged, device)[0] if ring else staged,
+             pos_after)
+            for r, staged, pos_after in _prefetch(map(stage, feed), depth))
+
+
 def host_tensors(packed, popcnt, lo, hi):
     """One batch's numpy arrays -> CPU tensors (copies: memmap slices are
     read-only, and the tail scratch is reused). Planes become the int32
@@ -196,38 +260,37 @@ def host_tensors(packed, popcnt, lo, hi):
 
 
 class _Slot:
-    def __init__(self, rows: int, w32: int):
-        self.tensors = (
-            torch.empty((rows, w32), dtype=torch.int32, pin_memory=True),
-            torch.empty(rows, dtype=torch.float32, pin_memory=True),
-            torch.empty(rows, dtype=torch.int32, pin_memory=True),
-            torch.empty(rows, dtype=torch.int32, pin_memory=True))
+    def __init__(self, specs):
+        self.tensors = tuple(torch.empty(shape, dtype=dtype, pin_memory=True)
+                             for shape, dtype in specs)
         self.event = torch.cuda.Event()
 
 
 class PinnedRing:
-    """Pinned staging buffers for one batch shape (rows, w32).
+    """Pinned staging buffers for one batch layout: `specs` lists the
+    (shape, dtype) of each array of a batch.
 
     `stage` (run on the feed's prefetch thread) takes a free buffer, waits
-    for its previous copy to the card to finish, and fills it; `upload`
-    (the main thread) enqueues the asynchronous copies on the current
-    stream, records the buffer's event behind them and frees the buffer.
-    With a prefetch queue of depth d, d + 2 buffers keep both threads busy.
+    for its previous copy to the card to finish, and fills it (the leading
+    rows of each array; uint32 planes as their int32 view); `upload` (the
+    main thread) enqueues the asynchronous copies on the current stream,
+    records the buffer's event behind them and frees the buffer. With a
+    prefetch queue of depth d, d + 2 buffers keep both threads busy.
     """
 
-    def __init__(self, n_slots: int, rows: int, w32: int):
+    def __init__(self, n_slots: int, specs):
         self._free: queue.Queue = queue.Queue()
         for _ in range(n_slots):
-            self._free.put(_Slot(rows, w32))
+            self._free.put(_Slot(specs))
 
-    def stage(self, packed, popcnt, lo, hi) -> _Slot:
+    def stage(self, *arrays) -> _Slot:
         slot = self._free.get()
         slot.event.synchronize()        # its last copy to the card is done
-        dst = slot.tensors
-        np.copyto(dst[0].numpy(), np.asarray(packed).view(np.int32))
-        np.copyto(dst[1].numpy(), popcnt)
-        np.copyto(dst[2].numpy(), lo)
-        np.copyto(dst[3].numpy(), hi)
+        for dst, a in zip(slot.tensors, arrays):
+            a = np.asarray(a)
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            np.copyto(dst.numpy()[:len(a)], a)
         return slot
 
     def upload(self, slot: _Slot, device: torch.device):

@@ -1,5 +1,6 @@
 """Tests of the port that need the card: the CUDA kernels against their
-plain versions, and the scan on the card against the scan on the CPU.
+plain versions, and the scan and kinship on the card against the same
+drivers on the CPU.
 
 They skip without CUDA. On a machine with the card (where jax may be
 absent, so tests/conftest.py is left out) run:
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from kmersgwas_tpu_torch.ops import bitplanes, score
+from kmersgwas_tpu_torch.ops import bitplanes, kinship, score
 
 pytestmark = pytest.mark.gpu
 
@@ -85,6 +86,64 @@ def test_tilemax_kernel_equals_plain(cuda, rows, n, p, precision):
             assert torch.equal(a, b)
         assert bool((got[6] > 1).any()) and bool((got[7] > 1).any())
     assert score.score_batch_t_tilemax.launches == launches + 3
+
+
+@pytest.mark.parametrize("rows,n,p", [(1024, 100, 3), (4096, 1008, 101)])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_score_t_and_rows_kernels_equal_plain(cuda, rows, n, p, precision):
+    """K4 (transposed, -inf padding) and K5 (row-major, no padding mask)
+    equal their plain versions bit for bit on dyadic phenotypes."""
+    packed, pc, yp, ysum = batch(rows, n, p, rows + 5 * p, cuda)
+    kw = dict(n_used=n, min_count=5, precision=precision)
+    launches = (score.score_batch_t.launches, score.score_batch.launches)
+    kt = score.score_batch_t(packed, pc, yp, ysum, **kw)
+    kr = score.score_batch(packed, pc, yp, ysum, **kw)
+    assert torch.equal(kt, score.scores_t_plain(packed, pc, yp, ysum, **kw))
+    assert torch.equal(kr, score.scores_plain(packed, pc, yp, ysum, **kw))
+    assert bool((kt == float("-inf")).any()) and bool(torch.isfinite(kr).all())
+    assert (score.score_batch_t.launches,
+            score.score_batch.launches) == (launches[0] + 1, launches[1] + 1)
+
+
+@pytest.mark.parametrize("rows,n,n_rows", [(4096, 100, 4096),
+                                           (4096, 100, 4001),
+                                           (20000, 1008, 19963),
+                                           (640, 300, 1)])
+def test_kinship_kernel_equals_plain(cuda, rows, n, n_rows):
+    """K7 adds the exact +-1 Gram of rows [0, n_rows) into acc in place,
+    bit-equal to the plain version; the rows past n_rows (random here) add
+    nothing."""
+    packed, _, _, _ = batch(rows, n, 1, rows + n, cuda)
+    packed = packed.clone()
+    packed[n_rows:] = torch.randint(-2 ** 31, 2 ** 31, packed[n_rows:].shape,
+                                    dtype=torch.int32, device=cuda)
+    n_pad = packed.shape[1] * 32
+    acc0 = torch.randint(-9, 9, (n_pad, n_pad), dtype=torch.int32,
+                         device=cuda)
+    acc = acc0.clone()
+    launches = kinship.kinship_accumulate.launches
+    kinship.kinship_accumulate(acc, packed, n_rows)
+    want = kinship.kinship_gram_plain(packed, n_rows)
+    assert torch.equal(acc - acc0, want)
+    assert torch.equal(want, want.T)
+    assert kinship.kinship_accumulate.launches == launches + 1
+
+
+def test_kinship_on_card_equals_cpu(cuda, tmp_path):
+    """kinship_from_table on the card, both routes and a checkpointed
+    resume, equals the CPU run exactly; K7 runs on every batch."""
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    rng = np.random.default_rng(8)
+    base, _ = write_table(tmp_path, rng, 200, 30_000, 31)
+    kw = dict(maf=0.05, batch_size=4096)
+    want = km.kinship_from_table(base, device="cpu", **kw)
+    launches = kinship.kinship_accumulate.launches
+    for extra in ({}, {"dtable_cache": str(tmp_path / "k.dtable")},
+                  {"checkpoint_path": str(tmp_path / "ck"),
+                   "checkpoint_every": 2}):
+        got = km.kinship_from_table(base, device="cuda", **kw, **extra)
+        np.testing.assert_array_equal(got, want)
+    assert kinship.kinship_accumulate.launches - launches >= 3 * 6
 
 
 def test_kernel_wrappers_refuse_bad_shapes(cuda):

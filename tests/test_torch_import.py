@@ -20,6 +20,9 @@ def test_port_imports_without_jax_or_a_build():
         "import sys\n"
         "import kmersgwas_tpu_torch, kmersgwas_tpu_torch.convert\n"
         "import kmersgwas_tpu_torch.pipeline.scan\n"
+        "import kmersgwas_tpu_torch.pipeline.kinship\n"
+        "import kmersgwas_tpu_torch.ops.kinship\n"
+        "import kmersgwas_tpu_torch.ops.scanstep\n"
         "import kmersgwas_tpu_torch.parallel.multihost\n"
         "import kmersgwas_tpu_torch.parallel.sharding\n"
         "import kmersgwas_tpu_torch.cli.__main__\n"

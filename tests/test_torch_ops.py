@@ -234,6 +234,52 @@ def test_sort_desc_index_asc_and_row_codec():
     np.testing.assert_array_equal(topk.decode_rows(lo, hi), rows)
 
 
+@pytest.mark.parametrize("gaussian,precision", [
+    (False, "default"), (False, "highest"), (True, "highest")])
+def test_score_batch_plain_matches_jax(gaussian, precision):
+    """Row-major scores (the plain version of K5) against the JAX package's
+    score_batch and its interpret-mode Pallas score_batch_pallas: 0 where
+    the MAC test fails and no -inf on padding rows."""
+    pb = problem(41, gaussian=gaussian, pad_rows=9)
+    got = score.scores_plain(*torch_args(pb), n_used=pb["n"], min_count=2,
+                             precision=precision).numpy()
+    want = np.asarray(jscore.score_batch(*jax_args(pb), n_used=pb["n"],
+                                         min_count=2))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(jscore.score_batch_pallas(
+            *jax_args(pb), n_used=pb["n"], min_count=2, tile_rows=128))
+    assert got.shape == (256, 3) and (got[-9:] == 0).all()
+    assert score.score_batch(*torch_args(pb), n_used=pb["n"], min_count=2,
+                             precision=precision).shape == got.shape
+    for ref in (want, pallas):
+        if gaussian:
+            assert_scores_close(got.T, ref.T)
+        else:
+            np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("gaussian,precision", [
+    (False, "default"), (False, "highest"), (True, "highest")])
+def test_score_batch_t_plain_matches_jax(gaussian, precision):
+    """Transposed scores (the plain version of K4) against the JAX scan
+    step's `_scores_t_xla` and the interpret-mode Pallas
+    score_batch_t_pallas: -inf on padding rows."""
+    pb = problem(43, gaussian=gaussian, pad_rows=9)
+    got = score.score_batch_t(*torch_args(pb), n_used=pb["n"], min_count=2,
+                              precision=precision).numpy()
+    want = np.asarray(jss._scores_t_xla(*jax_args(pb), pb["n"], 2))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(jscore.score_batch_t_pallas(
+            *jax_args(pb), n_used=pb["n"], min_count=2, tile_rows=128,
+            precision="highest"))
+    assert got.shape == (3, 256) and (got[:, -9:] == -np.inf).all()
+    for ref in (want, pallas):
+        if gaussian:
+            assert_scores_close(got, ref)
+        else:
+            np.testing.assert_array_equal(got, ref)
+
+
 def test_wrappers_route_by_device():
     """CPU tensors take the plain versions; a tensor on any other non-CUDA
     device is refused (there is no silent plain path off the CPU)."""
@@ -253,3 +299,10 @@ def test_wrappers_route_by_device():
                                  cand_w=32, **kw)
     with pytest.raises(ValueError, match="no kernel"):
         score.score_batch_t_bmax(*meta, **kw)
+    assert torch.equal(score.score_batch_t(*args, **kw),
+                       score.scores_t_plain(*args, **kw))
+    assert torch.equal(score.score_batch(*args, **kw),
+                       score.scores_plain(*args, **kw))
+    for fn in (score.score_batch_t, score.score_batch):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(*meta, **kw)

@@ -1,10 +1,12 @@
-"""Parity of the port's scan step (kmersgwas_tpu_torch.ops.scanstep) with
+"""Parity of the port's scan steps (kmersgwas_tpu_torch.ops.scanstep) with
 the JAX package on the CPU: tie-heavy streams (the streams of
 tests/test_ops.py's cand_w and col_group tests, with dyadic phenotypes so
 both sides' scores are bit-equal) must end in the same top-k — scores AND
 rows — as the JAX package's plain `scan_step`, with the narrow, wide and
-fallback branches all engaged; and a JAX mid-stream state handed to the
-port (kmersgwas_tpu_torch.convert) must end where JAX ends."""
+fallback branches all engaged; the port's plain `scan_step` must equal the
+JAX one after every batch, through its exact and its fallback branch; and
+a JAX mid-stream state handed to the port (kmersgwas_tpu_torch.convert)
+must end where JAX ends."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -49,6 +51,43 @@ def jax_plain_final(y, batches, k):
                            cand_k=8)
     return np.asarray(st.scores), jtopk.decode_rows(np.asarray(st.row_lo),
                                                     np.asarray(st.row_hi))
+
+
+@pytest.mark.parametrize("tie_column,cand_k", [(None, 8), (1, 8), (1, None)])
+def test_plain_scan_step_matches_jax_after_every_batch(tie_column, cand_k):
+    """The plain step (score_batch_t + blocked top-k + merge, the cand_k
+    candidate cap with its exactness check) against JAX `scan_step(kernel=
+    "xla")`: equal scores and rows after every batch; with cand_k both the
+    exact and the fallback branch run."""
+    y, batches = stream(27, p=3, n_batches=24, tie_column=tie_column)
+    k = 16
+    jyp, jysum = jscore.prepare_phenotypes(y, N_PAD)
+    jst = jtopk.init_state(3, k)
+    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
+    st = topk.TopKState(torch.full((3, k), float("-inf")),
+                        torch.zeros((3, k), dtype=torch.int32),
+                        torch.zeros((3, k), dtype=torch.int32))
+    counts = {}
+    for b in batches:
+        packed, pc, lo, hi = b
+        jst = jss.scan_step(jst, jnp.asarray(packed), jnp.asarray(pc),
+                            jnp.asarray(lo), jnp.asarray(hi), jyp, jysum,
+                            n_used=N, min_count=MIN_COUNT, kernel="xla",
+                            cand_k=cand_k)
+        st = scanstep.scan_step(st, *port_batch(b), yp, ysum, n_used=N,
+                                min_count=MIN_COUNT, cand_k=cand_k,
+                                counts=counts)
+        np.testing.assert_array_equal(st.scores.numpy(),
+                                      np.asarray(jst.scores))
+        np.testing.assert_array_equal(st.row_lo.numpy(),
+                                      np.asarray(jst.row_lo))
+        np.testing.assert_array_equal(st.row_hi.numpy(),
+                                      np.asarray(jst.row_hi))
+    if cand_k:
+        assert counts.get("exact", 0) >= 3, counts
+        assert counts.get("fallback", 0) >= 1, counts
+    else:
+        assert not counts
 
 
 def port_batch(b):
