@@ -45,11 +45,31 @@ Phases (each prints its own lines; any failure exits non-zero):
      path's shape, top-10001, cand_k 1250, 14 device-made 2M-row batches
      through both its branches, held against a plain running top-k;
  12. `score_batch` (K5) on one flagship batch against a numpy f64
-     computation on sampled rows.
+     computation on sampled rows;
+ 13. K6 (gen_planes) against its plain version at (2^21, 32) for two
+     (seed, step) pairs and at a ragged 2^21 - 37 rows: planes and
+     popcounts bit-equal, the popcounts equal to a bit count of the
+     planes, consecutive steps different, every bit position's density
+     0.5 +- 2e-3; times of both;
+ 14. the port's bench, `bench.main()` at its defaults (30 windows of 16
+     generated 2^21-row steps after the adaptive ramp; the host feed
+     measured on a 4.2M-row synthetic table in the work directory), then
+     `bench.streaming` and `bench.kinship_streaming` on that table: K6 on
+     every step, K1 at least as often, a finite checksum, and every kept
+     row of column 0, regenerated alone by the plain generator and
+     re-scored in f64, within CERTIFY_EPS of its kept score;
+ 15. the at-scale stream at full size (1104 steps of 2^21 rows,
+     2,315,255,808 rows): the 6 planted ids above 2^31 recovered with their
+     f64 scores, the resume from the mid-stream checkpoint bit-exact, the
+     top-k's largest id past 2^31.
 The script writes its inputs itself and imports nothing of the JAX
-package. The line before the last is the kernels' JSON record; the last
-line is {"ok": true, "device": {...}}. Without CUDA the script fails at
-once.
+package. The bench's and the at-scale stream's JSON lines come on earlier
+lines. The line before the last is the kernels' JSON record (per kernel:
+launches on its path, max abs error against its plain version, kernel and
+plain times, the bound at the card's peaks and what sets it, and the
+library call's time, null where no single PyTorch call computes the same
+function); the last line is {"ok": true, "device": {...}}. Without CUDA
+the script fails at once.
 """
 import json
 import os
@@ -76,6 +96,13 @@ TILEMAX_REPLACES = "kmersgwas_tpu/ops/score.py:269"
 SCORE_T_REPLACES = "kmersgwas_tpu/ops/score.py:109"
 SCORE_ROWS_REPLACES = "kmersgwas_tpu/ops/score.py:630"
 KINSHIP_REPLACES = "tools/prof_kinship.py:18"
+GEN_SOURCE = "kmersgwas_tpu_torch/csrc/gen_planes.cu"
+GEN_REPLACES = "bench.py:320"
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): the bounds of
+# the kernels record are max(bytes / HBM rate, ops / peak of their type)
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 # Gaussian phenotypes at precision "highest": the kernel and cuBLAS sum
 # ~500 f32 terms in different orders, and the score's numerator N*yigi -
 # n1*ysum cancels, so an error in r of a few f32 ulps of N*yigi moves a
@@ -1244,6 +1271,174 @@ def phase_score_batch(rows=2_097_152, n=1008, p=101, n_check=4096,
     return dict(k5=launches)
 
 
+# ---------------------------------------------------------------- phase 13
+
+def phase_gen(device="cuda", rows=1 << 21, w32=32):
+    """K6 (gen_planes) against gen_planes_plain on the card. -> (kernel ms,
+    plain ms) at (rows, w32)."""
+    import torch
+    from kmersgwas_tpu_torch.ops import bitplanes, gen
+    prev = None
+    for n_rows, seed, step in ((rows, 1 << 20, 0), (rows, 1 << 20, 1),
+                               (rows, 1_000_003, 1103), (rows - 37, 5, 7)):
+        planes, pc = gen.gen_planes(n_rows, w32, seed, step, device)
+        torch.cuda.synchronize()
+        want, want_pc = gen.gen_planes_plain(
+            torch.arange(n_rows, device=device), w32, seed, step)
+        tag = f"gen_planes ({n_rows}, {w32}) seed {seed} step {step}"
+        need(torch.equal(planes, want), f"{tag}: planes != plain, "
+             f"{int((planes != want).sum())} words differ")
+        need(torch.equal(pc, want_pc), f"{tag}: popcounts != plain")
+        need(torch.equal(pc, bitplanes.popcount_rows(planes)),
+             f"{tag}: popcounts != a bit count of the planes")
+        if prev is not None and prev[0] == seed:
+            need(not torch.equal(planes, prev[1]),
+                 f"{tag}: equal to the step before")
+        # density of every bit position (2^21 rows: 2e-3 is 5.8 sigma)
+        ones = torch.stack([((planes >> b) & 1).sum(dim=0)
+                            for b in range(32)]).double() / n_rows
+        dev_max = float((ones - 0.5).abs().max())
+        need(dev_max <= 2e-3, f"{tag}: a bit position's density is off 0.5 "
+             f"by {dev_max:.2e}")
+        log(f"  {tag}: bit-equal to plain; max density deviation of the "
+            f"{w32 * 32} bit positions {dev_max:.2e}")
+        prev = (seed, planes)
+        del planes, pc, want, want_pc, ones
+    dev = torch.device(device)
+    times = (cuda_ms(lambda: gen.gen_planes(rows, w32, 1, 2, dev)),
+             cuda_ms(lambda: gen.gen_planes_plain(
+                 torch.arange(rows, device=dev), w32, 1, 2), reps=3))
+    log(f"K6 gen_planes ({rows}, {w32}): kernel {times[0]:.3f} ms, plain "
+        f"{times[1]:.3f} ms (median CUDA-event times)")
+    return dict(times=times, rows=rows, w32=w32)
+
+
+# ---------------------------------------------------------------- phase 14
+
+def phase_bench(workdir, feed_rows=4_200_000, device="cuda", **main_kw):
+    """The port's bench at its defaults on the card, then its streaming
+    and kinship-streaming modes on the same synthetic table. `main_kw`,
+    smaller tables and device="cpu" rehearse the phase without a card (the
+    bench's shape is its module constants)."""
+    from kmersgwas_tpu_torch import bench
+    from kmersgwas_tpu_torch.ops import gen, score
+    from kmersgwas_tpu_torch.pipeline.scan import CERTIFY_EPS
+    cuda = device == "cuda"
+    gen.gen_planes.launches = 0
+    score.score_batch_t_topw.launches = 0
+    score.score_batch_t_bmax.launches = 0
+    t0 = time.perf_counter()
+    line, run = bench.main(device=device, feed_rows=feed_rows,
+                           workdir=workdir, **main_kw)
+    wall = time.perf_counter() - t0
+    k6 = gen.gen_planes.launches
+    k1 = score.score_batch_t_topw.launches
+    k2 = score.score_batch_t_bmax.launches
+    log(f"bench: {run.steps} steps of {run.rows} rows in {wall:.1f} s "
+        f"(table and feed included); median step {line['median_step_ms']} "
+        f"ms, {line['value']:,} k-mers/s, mfu {line['mfu']}; ramp windows "
+        f"{line['ramp_window_ms']} ms; branches {run.counts}; K6 gen_planes "
+        f"launches {k6}, K1 score_topw {k1}, K2 score_bmax {k2}")
+    need(k6 == run.steps or not cuda,
+         f"bench: K6 launched {k6} times for {run.steps} steps")
+    need(k1 >= run.steps or not cuda,
+         f"bench: K1 launched {k1} times for {run.steps} steps")
+    need(k2 >= 1 or not cuda, "bench: K2 was never launched")
+    need(len(line["ramp_window_ms"]) < max(main_kw.get("n_ramp", 6), 24),
+         f"bench: the ramp ran to its cap: {line['ramp_window_ms']}")
+    kept, exact = bench.rescore_kept(run)
+    err = np.abs(kept - exact) / np.abs(exact)
+    need(bool(np.isfinite(kept).all()) and bool((err <= CERTIFY_EPS).all()),
+         f"bench: kept scores of column 0 off their f64 re-score by up to "
+         f"{err.max():.3g} (CERTIFY_EPS {CERTIFY_EPS})")
+    log(f"bench: all {len(kept)} kept rows of column 0, regenerated alone "
+        f"and re-scored in f64, within {err.max():.3g} of their kept score "
+        f"(CERTIFY_EPS {CERTIFY_EPS})")
+    del run
+    st = bench.streaming(n_rows=feed_rows, workdir=workdir, device=device)
+    need(st["n_tested"] > 0 and st["value"] > 0,
+         f"bench --streaming: {st}")
+    kn = bench.kinship_streaming(n_rows=feed_rows, workdir=workdir,
+                                 device=device)
+    need(kn["value"] > 0 and kn["end_to_end_rows_per_sec"] > 0,
+         f"bench --kinship-streaming: {kn}")
+    log(f"bench --streaming: {st['value']:,} k-mers/s end to end over "
+        f"{st['n_tested']} rows; --kinship-streaming: feed {kn['value']:,} "
+        f"rows/s, end to end {kn['end_to_end_rows_per_sec']:,} rows/s")
+    return dict(k6=k6, line=line)
+
+
+# ---------------------------------------------------------------- phase 15
+
+def phase_at_scale(workdir, device="cuda", **kw):
+    """The at-scale stream at full size (the defaults; `kw` shrinks it for
+    a rehearsal): it raises unless the resume is bit-exact and every
+    planted id above 2^31 comes back with its f64 score."""
+    from kmersgwas_tpu_torch.ops import gen, score
+    from kmersgwas_tpu_torch.tools import at_scale_stream as ats
+    gen.gen_planes.launches = 0
+    score.score_batch_t_topw.launches = 0
+    t0 = time.perf_counter()
+    res = ats.main(device=device, out=os.path.join(workdir, "at_scale.json"),
+                   **kw)
+    wall = time.perf_counter() - t0
+    k6, k1 = gen.gen_planes.launches, score.score_batch_t_topw.launches
+    log(f"at-scale: {res['total_rows']:,} rows, continuous "
+        f"{res['wall_seconds_continuous']} s ({res['rows_per_sec_continuous']:,}"
+        f" rows/s), resumed half {res['wall_seconds_resumed_half']} s, "
+        f"{wall:.1f} s in all; planted {res['planted_ids']}, recovered "
+        f"{res['n_recovered']}; max id in the top-k "
+        f"{res['max_row_id_in_topk']:,}; K6 launches {k6}, K1 {k1}")
+    need(res["resume_bit_exact"], "at-scale: the resume differs")
+    need(res["n_recovered"] == len(res["planted_ids"])
+         and all(i > 2**31 for i in res["recovered"]),
+         f"at-scale: recovered {res['recovered']}")
+    need(res["planted_scores_match_host_f64"],
+         "at-scale: planted scores differ from f64")
+    need(res["max_row_exceeds_2p31"], "at-scale: no top-k id past 2^31")
+    need(k6 > 0 and k1 >= k6 or device != "cuda",
+         f"at-scale: K6 launched {k6}, K1 {k1} times")
+    return dict(k6=k6)
+
+
+# ---------------------------------------------------------------- record
+
+def bound_ms(n_bytes, ops=0.0, ops_per_s=None):
+    """(least time in ms, "bytes" or "operations"): the larger of the
+    bytes over the HBM rate and the operations over their peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3 if ops_per_s else 0.0
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def kernel_bounds(rows=2_097_152, n_pad=1024, p=101, w=256, kin_rows=1 << 20,
+                  gen_rows=1 << 21, gen_w32=32):
+    """Each kernel's bound at the shapes its time was taken at: K1-K5 one
+    flagship batch (R rows x n_pad lanes, P columns; bf16 products at
+    precision "default"), K7 2^20 rows into the (n_pad, n_pad) Gram
+    (int8), K6 one generated batch (bytes: the planes and popcounts it
+    writes)."""
+    w32 = n_pad // 32
+    f4 = 4
+    inputs = rows * w32 * f4 + rows * f4 + n_pad * p * f4 + p * f4
+    gemm = 2.0 * rows * n_pad * p
+    tiles = rows // 128
+    return {
+        "score_topw": bound_ms(inputs + p * f4 + p * w * 8 + p, gemm,
+                               BF16_OPS_PER_S),
+        "score_bmax": bound_ms(inputs + p * rows * f4 + p * rows // 16 * f4,
+                               gemm, BF16_OPS_PER_S),
+        "score_tilemax": bound_ms(inputs + p * f4 + 9 * p * tiles * f4, gemm,
+                                  BF16_OPS_PER_S),
+        "score_t": bound_ms(inputs + p * rows * f4, gemm, BF16_OPS_PER_S),
+        "score_rows": bound_ms(inputs + rows * p * f4, gemm, BF16_OPS_PER_S),
+        "kinship_gram": bound_ms(kin_rows * w32 * f4 + 2 * n_pad * n_pad * f4,
+                                 2.0 * kin_rows * n_pad * n_pad,
+                                 INT8_OPS_PER_S),
+        "gen_planes": bound_ms(gen_rows * gen_w32 * f4 + gen_rows * f4),
+    }
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -1280,6 +1475,9 @@ def main():
         phase_kinship_mp(workdir, mres, kin)
         sres = phase_scan_step()
         bres = phase_score_batch()
+        gres = phase_gen()
+        bench_res = phase_bench(workdir)
+        phase_at_scale(workdir)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1300,10 +1498,15 @@ def main():
             ("score_rows", SCORE_ROWS_SOURCE, SCORE_ROWS_REPLACES,
              bres["k5"], e[4], t[8], t[9]),
             ("kinship_gram", KINSHIP_SOURCE, KINSHIP_REPLACES, kin["k7"],
-             0.0, t[10], t[11])]
+             0.0, t[10], t[11]),
+            ("gen_planes", GEN_SOURCE, GEN_REPLACES, bench_res["k6"], 0.0,
+             *gres["times"])]
+    bounds = kernel_bounds(gen_rows=gres["rows"], gen_w32=gres["w32"])
     log(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,
-         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms}
+         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+         "bound_ms": bounds[nm][0], "bound_by": bounds[nm][1],
+         "library_ms": None}
         for nm, src, rep, n, err, ms, pms in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,7 @@ def _add_associate(sub):
                    help="where the scan runs (cuda raises without a card)")
 
     def run(a):
-        from kmersgwas_tpu.core import formats
+        from ..core import formats
         from ..pipeline import scan
         pheno = formats.read_phenotypes(a.phenotype_file)
         res = scan.associate(a.kmers_table, pheno.accessions, pheno.values,
@@ -117,8 +117,8 @@ def _add_associate_mp(sub):
                    help="per-process checkpoint base (<path>.p<pid>.npz)")
 
     def run(a):
-        from kmersgwas_tpu.core import formats
-        from kmersgwas_tpu.core.table import KmersTableReader
+        from ..core import formats
+        from ..core.table import KmersTableReader
         from ..parallel import multihost
         from ..pipeline import scan as scan_mod
         multihost.init_distributed(coordinator_address=a.coordinator,

@@ -35,8 +35,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from kmersgwas_tpu.core.table import KmersTableReader
 from ..ops.topk import encode_rows as _encode_rows
+from .table import KmersTableReader
 
 MAGIC = b"KGTD"
 VERSION = 3     # v2: +names_hash (accession-subset identity)

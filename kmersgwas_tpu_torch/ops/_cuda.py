@@ -32,7 +32,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("score_topw.cu", "score_bmax.cu", "score_tilemax.cu",
-           "score_t.cu", "score_rows.cu", "kinship_gram.cu")
+           "score_t.cu", "score_rows.cu", "kinship_gram.cu",
+           "gen_planes.cu")
 HEADERS = ("score_common.cuh", "tile_top3.cuh")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)     # looked at after PATH
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -48,6 +49,7 @@ TILE_COLS = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
 _F = ctypes.c_float
 
 
@@ -145,6 +147,11 @@ def library() -> KernelLib:
     lib.kgt_kinship_gram.argtypes = [
         _P, _LL, _I,                   # packed, n_rows, w32
         _P,                            # acc
+        _P]                            # stream
+    lib.kgt_gen_planes.restype = _I
+    lib.kgt_gen_planes.argtypes = [
+        _P, _P, _LL, _I,               # planes, pc, rows, w32
+        _ULL, _ULL,                    # seed, step
         _P]                            # stream
     lib.kgt_error_string.restype = ctypes.c_char_p
     lib.kgt_error_string.argtypes = [_I]

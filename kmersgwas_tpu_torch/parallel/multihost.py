@@ -29,9 +29,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from kmersgwas_tpu.core import formats
-from kmersgwas_tpu.core.table import KmersTableReader
-
+from ..core import formats
+from ..core.table import KmersTableReader
 from ..ops import _cuda
 from ..ops import kinship as kin_ops
 from ..ops import scanstep as ss

@@ -38,7 +38,7 @@ def host_range_of_kmer_space(host_id: int, n_hosts: int, kmer_len: int):
     """Contiguous uint62 k-mer range owned by `host_id`, cut at the
     reference's slice boundaries so per-host table shards can be built
     independently and byte-identically."""
-    from kmersgwas_tpu.core.codec import step_bounds
+    from ..core.codec import step_bounds
     bounds = step_bounds(n_hosts, kmer_len)
     lo = 0 if host_id == 0 else int(bounds[host_id - 1])
     hi = int(bounds[host_id])

@@ -19,8 +19,7 @@ from collections import deque
 
 import numpy as np
 
-from kmersgwas_tpu.core.table import KmersTableReader
-
+from ..core.table import KmersTableReader
 from ..ops.kinship import KinshipAccumulator
 from ..utils import drain, require_device, step_event
 from . import checkpoint as ckpt

@@ -26,9 +26,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from kmersgwas_tpu.core import codec, formats
-from kmersgwas_tpu.core.table import KmersTableReader
-
+from .. import native
+from ..core import codec, formats
+from ..core import table as table_mod
+from ..core.table import KmersTableReader
 from ..ops import _cuda
 from ..ops import scanstep as ss
 from ..ops import score as score_ops
@@ -454,7 +455,6 @@ def fetch_rows(reader: KmersTableReader, rows: np.ndarray, dt=None):
     if len(rows) == 0:
         empty = RowLookup(rows, np.empty((0, n64), "<u8"))
         return RowLookup(rows, np.empty(0, np.uint64)), empty
-    from kmersgwas_tpu.core import table as table_mod
     if dt is not None and table_mod._native_squeeze_available():
         # raw route wins with the native squeeze: 1 IO/row + a C pass vs
         # the dtable's 2 sections (planes + kmers) at 2 IOs/row
@@ -476,9 +476,7 @@ def fetch_rows(reader: KmersTableReader, rows: np.ndarray, dt=None):
     raw = _pread_gather(reader.base + ".table",
                         formats.TableHeader.HEADER_BYTES, (1 + wf) * 8,
                         rows).view("<u8")
-    from kmersgwas_tpu.core import table as table_mod
     if table_mod._native_squeeze_available():
-        from kmersgwas_tpu import native
         _, packed_all, _, _ = native.squeeze_pack(
             raw, reader.file_col, reader.n_used, reader.w32, 0)
         pa = np.ascontiguousarray(packed_all).view("<u8")[:, :n64].copy()

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from kmersgwas_tpu_torch.ops import bitplanes, kinship, score
+from kmersgwas_tpu_torch.ops import bitplanes, gen, kinship, score
 
 pytestmark = pytest.mark.gpu
 
@@ -127,6 +127,20 @@ def test_kinship_kernel_equals_plain(cuda, rows, n, n_rows):
     assert torch.equal(acc - acc0, want)
     assert torch.equal(want, want.T)
     assert kinship.kinship_accumulate.launches == launches + 1
+
+
+@pytest.mark.parametrize("rows,w32,seed,step", [(4096, 32, 1 << 20, 3),
+                                               ((1 << 16) - 37, 32, 5, 2**40),
+                                               (1000, 12, 9, 2**64 - 1)])
+def test_gen_planes_kernel_equals_plain(cuda, rows, w32, seed, step):
+    before = gen.gen_planes.launches
+    planes, pc = gen.gen_planes(rows, w32, seed, step, cuda)
+    torch.cuda.synchronize()
+    assert gen.gen_planes.launches == before + 1
+    want, want_pc = gen.gen_planes_plain(torch.arange(rows, device=cuda),
+                                         w32, seed, step)
+    assert torch.equal(planes, want) and torch.equal(pc, want_pc)
+    assert torch.equal(pc, bitplanes.popcount_rows(planes))
 
 
 def test_kinship_on_card_equals_cpu(cuda, tmp_path):
