@@ -98,11 +98,9 @@ SCORE_ROWS_REPLACES = "kmersgwas_tpu/ops/score.py:630"
 KINSHIP_REPLACES = "tools/prof_kinship.py:18"
 GEN_SOURCE = "kmersgwas_tpu_torch/csrc/gen_planes.cu"
 GEN_REPLACES = "bench.py:320"
-# the card's peaks (NVIDIA H100 SXM data sheet, dense): the bounds of
-# the kernels record are max(bytes / HBM rate, ops / peak of their type)
-HBM_BYTES_PER_S = 3.35e12
-BF16_OPS_PER_S = 989e12
-INT8_OPS_PER_S = 1979e12
+# rows of the bench's synthetic table in phase 14 (the root bench's 8M
+# cut to the main path's 4.2M)
+BENCH_FEED_ROWS = 4_200_000
 # Gaussian phenotypes at precision "highest": the kernel and cuBLAS sum
 # ~500 f32 terms in different orders, and the score's numerator N*yigi -
 # n1*ysum cancels, so an error in r of a few f32 ulps of N*yigi moves a
@@ -1273,18 +1271,19 @@ def phase_score_batch(rows=2_097_152, n=1008, p=101, n_check=4096,
 
 # ---------------------------------------------------------------- phase 13
 
-def phase_gen(device="cuda", rows=1 << 21, w32=32):
+def phase_gen(rows=1 << 21, w32=32):
     """K6 (gen_planes) against gen_planes_plain on the card. -> (kernel ms,
     plain ms) at (rows, w32)."""
     import torch
     from kmersgwas_tpu_torch.ops import bitplanes, gen
+    dev = torch.device("cuda")
     prev = None
     for n_rows, seed, step in ((rows, 1 << 20, 0), (rows, 1 << 20, 1),
                                (rows, 1_000_003, 1103), (rows - 37, 5, 7)):
-        planes, pc = gen.gen_planes(n_rows, w32, seed, step, device)
+        planes, pc = gen.gen_planes(n_rows, w32, seed, step, dev)
         torch.cuda.synchronize()
         want, want_pc = gen.gen_planes_plain(
-            torch.arange(n_rows, device=device), w32, seed, step)
+            torch.arange(n_rows, device=dev), w32, seed, step)
         tag = f"gen_planes ({n_rows}, {w32}) seed {seed} step {step}"
         need(torch.equal(planes, want), f"{tag}: planes != plain, "
              f"{int((planes != want).sum())} words differ")
@@ -1304,7 +1303,6 @@ def phase_gen(device="cuda", rows=1 << 21, w32=32):
             f"{w32 * 32} bit positions {dev_max:.2e}")
         prev = (seed, planes)
         del planes, pc, want, want_pc, ones
-    dev = torch.device(device)
     times = (cuda_ms(lambda: gen.gen_planes(rows, w32, 1, 2, dev)),
              cuda_ms(lambda: gen.gen_planes_plain(
                  torch.arange(rows, device=dev), w32, 1, 2), reps=3))
@@ -1315,21 +1313,42 @@ def phase_gen(device="cuda", rows=1 << 21, w32=32):
 
 # ---------------------------------------------------------------- phase 14
 
-def phase_bench(workdir, feed_rows=4_200_000, device="cuda", **main_kw):
+def rescore_kept(run, col=0):
+    """The final kept rows of column `col` of a bench run, each regenerated
+    alone from (seed, step, row) by the plain generator on the host and
+    scored in f64 by the step's formula (the popcount counts every lane,
+    as the generator's does). -> (kept f32 scores, f64 scores)."""
+    import torch
+    from kmersgwas_tpu_torch.ops import gen, scanstep, topk
+    final = scanstep.flush_buffered(run.state)
+    rows = topk.decode_rows(final.row_lo.cpu().numpy(),
+                            final.row_hi.cpu().numpy())[col]
+    step, r = np.divmod(rows, run.rows)
+    n = run.y.shape[0]
+    w32 = -(-n // 128) * 4
+    planes, pc = gen.gen_planes_plain(torch.from_numpy(r), w32, run.seed,
+                                      torch.from_numpy(step))
+    bits = np.unpackbits(planes.numpy().view(np.uint8), axis=1,
+                         bitorder="little").astype(np.float64)
+    y = np.zeros(w32 * 32)
+    y[:n] = run.y[:, col].astype(np.float64)
+    n1 = pc.numpy().astype(np.float64)
+    num = n * (bits @ y) - n1 * y.sum()
+    return final.scores[col].cpu().numpy(), num * num / (n * n1 - n1 * n1)
+
+
+def phase_bench(workdir):
     """The port's bench at its defaults on the card, then its streaming
-    and kinship-streaming modes on the same synthetic table. `main_kw`,
-    smaller tables and device="cpu" rehearse the phase without a card (the
-    bench's shape is its module constants)."""
+    and kinship-streaming modes on the same BENCH_FEED_ROWS-row synthetic
+    table."""
     from kmersgwas_tpu_torch import bench
     from kmersgwas_tpu_torch.ops import gen, score
     from kmersgwas_tpu_torch.pipeline.scan import CERTIFY_EPS
-    cuda = device == "cuda"
     gen.gen_planes.launches = 0
     score.score_batch_t_topw.launches = 0
     score.score_batch_t_bmax.launches = 0
     t0 = time.perf_counter()
-    line, run = bench.main(device=device, feed_rows=feed_rows,
-                           workdir=workdir, **main_kw)
+    line, run = bench.main(feed_rows=BENCH_FEED_ROWS, workdir=workdir)
     wall = time.perf_counter() - t0
     k6 = gen.gen_planes.launches
     k1 = score.score_batch_t_topw.launches
@@ -1339,14 +1358,14 @@ def phase_bench(workdir, feed_rows=4_200_000, device="cuda", **main_kw):
         f"ms, {line['value']:,} k-mers/s, mfu {line['mfu']}; ramp windows "
         f"{line['ramp_window_ms']} ms; branches {run.counts}; K6 gen_planes "
         f"launches {k6}, K1 score_topw {k1}, K2 score_bmax {k2}")
-    need(k6 == run.steps or not cuda,
-         f"bench: K6 launched {k6} times for {run.steps} steps")
-    need(k1 >= run.steps or not cuda,
-         f"bench: K1 launched {k1} times for {run.steps} steps")
-    need(k2 >= 1 or not cuda, "bench: K2 was never launched")
-    need(len(line["ramp_window_ms"]) < max(main_kw.get("n_ramp", 6), 24),
+    need(k6 == run.steps, f"bench: K6 launched {k6} times for {run.steps} "
+         "steps")
+    need(k1 >= run.steps, f"bench: K1 launched {k1} times for {run.steps} "
+         "steps")
+    need(k2 >= 1, "bench: K2 was never launched")
+    need(len(line["ramp_window_ms"]) < 24,
          f"bench: the ramp ran to its cap: {line['ramp_window_ms']}")
-    kept, exact = bench.rescore_kept(run)
+    kept, exact = rescore_kept(run)
     err = np.abs(kept - exact) / np.abs(exact)
     need(bool(np.isfinite(kept).all()) and bool((err <= CERTIFY_EPS).all()),
          f"bench: kept scores of column 0 off their f64 re-score by up to "
@@ -1355,32 +1374,36 @@ def phase_bench(workdir, feed_rows=4_200_000, device="cuda", **main_kw):
         f"and re-scored in f64, within {err.max():.3g} of their kept score "
         f"(CERTIFY_EPS {CERTIFY_EPS})")
     del run
-    st = bench.streaming(n_rows=feed_rows, workdir=workdir, device=device)
+    st = bench.streaming(n_rows=BENCH_FEED_ROWS, workdir=workdir)
     need(st["n_tested"] > 0 and st["value"] > 0,
          f"bench --streaming: {st}")
-    kn = bench.kinship_streaming(n_rows=feed_rows, workdir=workdir,
-                                 device=device)
+    kn = bench.kinship_streaming(n_rows=BENCH_FEED_ROWS, workdir=workdir)
     need(kn["value"] > 0 and kn["end_to_end_rows_per_sec"] > 0,
          f"bench --kinship-streaming: {kn}")
-    log(f"bench --streaming: {st['value']:,} k-mers/s end to end over "
-        f"{st['n_tested']} rows; --kinship-streaming: feed {kn['value']:,} "
-        f"rows/s, end to end {kn['end_to_end_rows_per_sec']:,} rows/s")
+    sub = st["sub_stage_seconds"]
+    log(f"bench --streaming: {st['n_tested']} rows; the stream sub-stage "
+        f"(feed, copy, steps) {sub['stream']} s = "
+        f"{st['n_tested'] / max(sub['stream'], 1e-9):,.0f} rows/s; end to "
+        f"end {st['value']:,} k-mers/s, set-up and the winner fetch "
+        f"included (sub-stages {sub}); --kinship-streaming: feed "
+        f"{kn['value']:,} rows/s, end to end "
+        f"{kn['end_to_end_rows_per_sec']:,} rows/s (first-batch set-up "
+        "included)")
     return dict(k6=k6, line=line)
 
 
 # ---------------------------------------------------------------- phase 15
 
-def phase_at_scale(workdir, device="cuda", **kw):
-    """The at-scale stream at full size (the defaults; `kw` shrinks it for
-    a rehearsal): it raises unless the resume is bit-exact and every
-    planted id above 2^31 comes back with its f64 score."""
+def phase_at_scale(workdir):
+    """The at-scale stream at full size: it raises unless the resume is
+    bit-exact and every planted id above 2^31 comes back with its f64
+    score."""
     from kmersgwas_tpu_torch.ops import gen, score
     from kmersgwas_tpu_torch.tools import at_scale_stream as ats
     gen.gen_planes.launches = 0
     score.score_batch_t_topw.launches = 0
     t0 = time.perf_counter()
-    res = ats.main(device=device, out=os.path.join(workdir, "at_scale.json"),
-                   **kw)
+    res = ats.main(out=os.path.join(workdir, "at_scale.json"))
     wall = time.perf_counter() - t0
     k6, k1 = gen.gen_planes.launches, score.score_batch_t_topw.launches
     log(f"at-scale: {res['total_rows']:,} rows, continuous "
@@ -1396,46 +1419,51 @@ def phase_at_scale(workdir, device="cuda", **kw):
     need(res["planted_scores_match_host_f64"],
          "at-scale: planted scores differ from f64")
     need(res["max_row_exceeds_2p31"], "at-scale: no top-k id past 2^31")
-    need(k6 > 0 and k1 >= k6 or device != "cuda",
-         f"at-scale: K6 launched {k6}, K1 {k1} times")
+    need(k6 > 0 and k1 >= k6, f"at-scale: K6 launched {k6}, K1 {k1} times")
     return dict(k6=k6)
 
 
 # ---------------------------------------------------------------- record
 
-def bound_ms(n_bytes, ops=0.0, ops_per_s=None):
+def bound_ms(n_bytes, ops, ops_per_s, bytes_per_s):
     """(least time in ms, "bytes" or "operations"): the larger of the
     bytes over the HBM rate and the operations over their peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3 if ops_per_s else 0.0
+    t_bytes = n_bytes / bytes_per_s * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def kernel_bounds(rows=2_097_152, n_pad=1024, p=101, w=256, kin_rows=1 << 20,
-                  gen_rows=1 << 21, gen_w32=32):
-    """Each kernel's bound at the shapes its time was taken at: K1-K5 one
-    flagship batch (R rows x n_pad lanes, P columns; bf16 products at
-    precision "default"), K7 2^20 rows into the (n_pad, n_pad) Gram
-    (int8), K6 one generated batch (bytes: the planes and popcounts it
-    writes)."""
+def kernel_bounds(peaks, rows=2_097_152, n_used=1008, n_pad=1024, p=101,
+                  w=256, kin_rows=1 << 20, gen_rows=1 << 21, gen_w32=32):
+    """Each kernel's bound at the shapes its time was taken at, at the
+    card's peaks (`bench.CardPeaks`). Operations count what the function
+    needs, not the padding: K1-K5 one flagship batch, the (R, N) x (N, P)
+    score GEMM (bf16 products at precision "default"); K7 2^20 rows into
+    the Gram of N samples, whose N (N + 1) / 2 entries on and above the
+    diagonal are all the function needs (int8); K6 one generated batch, no
+    operations that a peak counts (bytes: the planes and popcounts it
+    writes). Bytes: each input read once, each output written once."""
     w32 = n_pad // 32
     f4 = 4
     inputs = rows * w32 * f4 + rows * f4 + n_pad * p * f4 + p * f4
-    gemm = 2.0 * rows * n_pad * p
+    gemm = 2.0 * rows * n_used * p
     tiles = rows // 128
+
+    def score(out_bytes):
+        return bound_ms(inputs + out_bytes, gemm, peaks.bf16_flops,
+                        peaks.hbm_bytes)
     return {
-        "score_topw": bound_ms(inputs + p * f4 + p * w * 8 + p, gemm,
-                               BF16_OPS_PER_S),
-        "score_bmax": bound_ms(inputs + p * rows * f4 + p * rows // 16 * f4,
-                               gemm, BF16_OPS_PER_S),
-        "score_tilemax": bound_ms(inputs + p * f4 + 9 * p * tiles * f4, gemm,
-                                  BF16_OPS_PER_S),
-        "score_t": bound_ms(inputs + p * rows * f4, gemm, BF16_OPS_PER_S),
-        "score_rows": bound_ms(inputs + rows * p * f4, gemm, BF16_OPS_PER_S),
-        "kinship_gram": bound_ms(kin_rows * w32 * f4 + 2 * n_pad * n_pad * f4,
-                                 2.0 * kin_rows * n_pad * n_pad,
-                                 INT8_OPS_PER_S),
-        "gen_planes": bound_ms(gen_rows * gen_w32 * f4 + gen_rows * f4),
+        "score_topw": score(p * f4 + p * w * 8 + p),
+        "score_bmax": score(p * rows * f4 + p * rows // 16 * f4),
+        "score_tilemax": score(p * f4 + 9 * p * tiles * f4),
+        "score_t": score(p * rows * f4),
+        "score_rows": score(rows * p * f4),
+        "kinship_gram": bound_ms(
+            kin_rows * w32 * f4 + 2 * n_pad * n_pad * f4,
+            2.0 * kin_rows * n_used * (n_used + 1) / 2, peaks.int8_ops,
+            peaks.hbm_bytes),
+        "gen_planes": bound_ms(gen_rows * gen_w32 * f4 + gen_rows * f4, 0.0,
+                               peaks.int8_ops, peaks.hbm_bytes),
     }
 
 
@@ -1453,10 +1481,15 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     try:
-        import kmersgwas_tpu_torch  # noqa: F401
+        from kmersgwas_tpu_torch import bench
     except ImportError as e:
         print(f"FAIL: the port is not importable from {ROOT}: {e}",
               file=sys.stderr)
+        return 1
+    peaks = bench.card_peaks(torch.device("cuda"))
+    if peaks is None:
+        print(f"FAIL: no peaks known for {torch.cuda.get_device_name(0)} "
+              "(kmersgwas_tpu_torch/bench.py CARD_PEAKS)", file=sys.stderr)
         return 1
     build = os.path.join(ROOT, "kmersgwas_tpu_torch", "build")
     os.makedirs(build, exist_ok=True)
@@ -1501,7 +1534,7 @@ def main():
              0.0, t[10], t[11]),
             ("gen_planes", GEN_SOURCE, GEN_REPLACES, bench_res["k6"], 0.0,
              *gres["times"])]
-    bounds = kernel_bounds(gen_rows=gres["rows"], gen_w32=gres["w32"])
+    bounds = kernel_bounds(peaks, gen_rows=gres["rows"], gen_w32=gres["w32"])
     log(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,

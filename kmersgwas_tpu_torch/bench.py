@@ -58,9 +58,21 @@ BENCH_SEED = 1 << 20            # the root bench's first generator seed
 ROW_ID_LIMIT = 1 << 31          # row ids ride as (lo = base + r, hi = 0)
 WORKDIR = os.path.join(_cuda.BUILD, "bench")
 
-# dense bf16 tensor-core peak by device name (NVIDIA's data sheet): the
-# score step's GEMM is bf16 x exact 0/1 at precision "default"
-BF16_PEAKS = (("H100 80GB HBM3", "NVIDIA H100 SXM", 989.0),)
+
+@dataclass(frozen=True)
+class CardPeaks:
+    """A card's dense peaks (NVIDIA's data sheet): bf16 tensor-core FLOP/s
+    (the score step's GEMM is bf16 x exact 0/1 at precision "default"),
+    int8 tensor-core op/s (the kinship Gram) and HBM bytes/s."""
+    label: str
+    bf16_flops: float
+    int8_ops: float
+    hbm_bytes: float
+
+
+# by a substring of torch.cuda.get_device_name
+CARD_PEAKS = (("H100 80GB HBM3",
+               CardPeaks("NVIDIA H100 SXM", 989e12, 1979e12, 3.35e12)),)
 
 
 def card_line(device: torch.device) -> str:
@@ -74,14 +86,12 @@ def card_line(device: torch.device) -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def bf16_peak(device: torch.device):
-    """(label, TFLOP/s) of the card's dense bf16 peak, or None where this
-    table does not know the device."""
+def card_peaks(device: torch.device) -> CardPeaks | None:
+    """The card's peaks, or None where CARD_PEAKS does not know it."""
     if device.type != "cuda":
         return None
     name = torch.cuda.get_device_name(device)
-    return next(((label, tf) for key, label, tf in BF16_PEAKS if key in name),
-                None)
+    return next((pk for key, pk in CARD_PEAKS if key in name), None)
 
 
 def _sync(device: torch.device) -> None:
@@ -341,29 +351,6 @@ class BenchRun:
     counts: dict
 
 
-def rescore_kept(run: BenchRun, col: int = 0):
-    """The final kept rows of column `col` of a bench run, each regenerated
-    alone from (seed, step, row) by the plain generator on the host and
-    scored in f64 by the step's formula (the popcount counts every lane,
-    as the generator's does). -> (kept f32 scores, f64 scores)."""
-    from .ops import topk
-    final = ss.flush_buffered(run.state)
-    rows = topk.decode_rows(final.row_lo.cpu().numpy(),
-                            final.row_hi.cpu().numpy())[col]
-    step, r = np.divmod(rows, run.rows)
-    n = run.y.shape[0]
-    w32 = -(-n // 128) * 4
-    planes, pc = gen_ops.gen_planes_plain(torch.from_numpy(r), w32,
-                                          run.seed, torch.from_numpy(step))
-    bits = np.unpackbits(planes.numpy().view(np.uint8), axis=1,
-                         bitorder="little").astype(np.float64)
-    y = np.zeros(w32 * 32)
-    y[:n] = run.y[:, col].astype(np.float64)
-    n1 = pc.numpy().astype(np.float64)
-    num = n * (bits @ y) - n1 * y.sum()
-    return final.scores[col].cpu().numpy(), num * num / (n * n1 - n1 * n1)
-
-
 def main(n_windows: int = 30, steps_per_window: int = 16, n_ramp: int = 6,
          *, device="cuda", feed_rows: int = 8_000_000,
          workdir: str = WORKDIR):
@@ -439,10 +426,10 @@ def main(n_windows: int = 30, steps_per_window: int = 16, n_ramp: int = 6,
     # the step's score GEMM: (rows, n_pad) x (n_pad, p), bf16 products on
     # the tensor cores' rate; useful FLOPs exclude the p -> 128 padding
     gemm_flops = 2.0 * ROWS * N_PAD * P
-    peak = bf16_peak(dev)
-    mfu = (gemm_flops / (med_step_ms * 1e-3) / (peak[1] * 1e12)
+    peak = card_peaks(dev)
+    mfu = (gemm_flops / (med_step_ms * 1e-3) / peak.bf16_flops
            if peak else None)
-    gemm_floor_ms = gemm_flops / (peak[1] * 1e12) * 1e3 if peak else None
+    gemm_floor_ms = gemm_flops / peak.bf16_flops * 1e3 if peak else None
     print("ramp ms:   " + " ".join(f"{t*1e3:.0f}" for t in ramp_s),
           file=sys.stderr)
     print("window ms: " + " ".join(f"{t*1e3:.0f}" for t in win_s),
@@ -462,8 +449,8 @@ def main(n_windows: int = 30, steps_per_window: int = 16, n_ramp: int = 6,
                 f"{n_windows} synced {S}-step steady-state windows over a "
                 "fresh-random on-device 2M-row/step stream; "
                 f"{len(ramp_s)} adaptive ramp windows reported separately; "
-                + (f"mfu against the {peak[0]} dense bf16 tensor-core peak, "
-                   f"{peak[1]:g} TFLOP/s" if peak
+                + (f"mfu against the {peak.label} dense bf16 tensor-core "
+                   f"peak, {peak.bf16_flops / 1e12:g} TFLOP/s" if peak
                    else f"no bf16 peak known for {card}: mfu null") + ")",
         "vs_baseline": round(med / BASELINE_KMERS_PER_SEC, 3),
         "window_spread_p10_p90": round(spread, 3),

@@ -120,8 +120,14 @@ def test_main_small(monkeypatch, tmp_path, capsys):
     yp, ysum = score_ops.prepare_phenotypes(run.y, N_PAD, "cpu")
     again = score_ops.scores_t_plain(planes, pc, yp, ysum, n_used=N,
                                      min_count=bench.MIN_COUNT)[0]
-    kept, exact = bench.rescore_kept(run, 0)
-    np.testing.assert_array_equal(kept, final.scores[0].numpy())
+    bits = np.unpackbits(planes.numpy().view(np.uint8), axis=1,
+                         bitorder="little").astype(np.float64)
+    y0 = np.zeros(N_PAD)
+    y0[:N] = run.y[:, 0]
+    n1 = pc.numpy().astype(np.float64)
+    num = N * (bits @ y0) - n1 * y0.sum()
+    exact = num * num / (N * n1 - n1 * n1)
+    kept = final.scores[0].numpy()
     assert np.isfinite(kept).all()
     np.testing.assert_allclose(kept, again.numpy(), rtol=1e-5)
     np.testing.assert_allclose(kept, exact, rtol=1e-2)
