@@ -61,7 +61,21 @@ Phases (each prints its own lines; any failure exits non-zero):
  15. the at-scale stream at full size (1104 steps of 2^21 rows,
      2,315,255,808 rows): the 6 planted ids above 2^31 recovered with their
      f64 scores, the resume from the mid-stream checkpoint bit-exact, the
-     top-k's largest id past 2^31.
+     top-k's largest id past 2^31;
+ 16. the probes' kernels: the exp_kernel tool's twenty cases (K9,
+     tile_reduce and tile_topc) at the probe's shape (P_PAD 104, NT 128,
+     TR 2048) on its tie-heavy plane, each bit-equal to its plain version
+     and to the JAX kernel's function in numpy; K8 (score_parity) on one
+     flagship batch (R=2,097,152, N=1008, P=101, tile 4096, w 128)
+     bit-equal to parity_plain on dyadic phenotypes and within RTOL on
+     Gaussian ones at "highest"; K6 at every probe generator's shape
+     (2^19-2^23 rows), popcounts on and off, bit-equal to plain; times;
+ 17. each probe's headline variant through the probe tool, window counts
+     cut: K6 on every step, K8 on every step of prof_r5_epi parity4096,
+     the step's branch counts; prof_r5_pscale at P=1009 with col_group 128,
+     the kept rows of columns 0 and 1008 regenerated alone and re-scored
+     in f64 on the phenotypes the GEMM multiplies (bf16 at "default"),
+     within CERTIFY_EPS; the smoke's wall time.
 The script writes its inputs itself and imports nothing of the JAX
 package. The bench's and the at-scale stream's JSON lines come on earlier
 lines. The line before the last is the kernels' JSON record (per kernel:
@@ -72,6 +86,7 @@ function); the last line is {"ok": true, "device": {...}}. Without CUDA
 the script fails at once.
 """
 import json
+import math
 import os
 import shutil
 import statistics
@@ -98,6 +113,11 @@ SCORE_ROWS_REPLACES = "kmersgwas_tpu/ops/score.py:630"
 KINSHIP_REPLACES = "tools/prof_kinship.py:18"
 GEN_SOURCE = "kmersgwas_tpu_torch/csrc/gen_planes.cu"
 GEN_REPLACES = "bench.py:320"
+PARITY_SOURCE = "kmersgwas_tpu_torch/csrc/score_parity.cu"
+PARITY_REPLACES = "tools/prof_r5_epi.py:419"
+REDUCE_SOURCE = "kmersgwas_tpu_torch/csrc/tile_reduce.cu"
+REDUCE_REPLACES = "tools/exp_kernel.py:33"
+TOPC_REPLACES = "tools/exp_kernel.py:689"
 # rows of the bench's synthetic table in phase 14 (the root bench's 8M
 # cut to the main path's 4.2M)
 BENCH_FEED_ROWS = 4_200_000
@@ -1313,11 +1333,14 @@ def phase_gen(rows=1 << 21, w32=32):
 
 # ---------------------------------------------------------------- phase 14
 
-def rescore_kept(run, col=0):
+def rescore_kept(run, col=0, operand=False):
     """The final kept rows of column `col` of a bench run, each regenerated
     alone from (seed, step, row) by the plain generator on the host and
     scored in f64 by the step's formula (the popcount counts every lane,
-    as the generator's does). -> (kept f32 scores, f64 scores)."""
+    as the generator's does). operand: take the product with the
+    phenotypes the GEMM multiplies at precision "default" (rounded to
+    bf16), the column sum with the f32 ones, as the kernels do; else both
+    with the f32 ones. -> (kept f32 scores, f64 scores)."""
     import torch
     from kmersgwas_tpu_torch.ops import gen, scanstep, topk
     final = scanstep.flush_buffered(run.state)
@@ -1331,9 +1354,13 @@ def rescore_kept(run, col=0):
     bits = np.unpackbits(planes.numpy().view(np.uint8), axis=1,
                          bitorder="little").astype(np.float64)
     y = np.zeros(w32 * 32)
-    y[:n] = run.y[:, col].astype(np.float64)
+    ycol = torch.from_numpy(np.ascontiguousarray(run.y[:, col]))
+    ysum = float(ycol.double().sum())
+    if operand:
+        ycol = ycol.to(torch.bfloat16).to(torch.float32)
+    y[:n] = ycol.numpy().astype(np.float64)
     n1 = pc.numpy().astype(np.float64)
-    num = n * (bits @ y) - n1 * y.sum()
+    num = n * (bits @ y) - n1 * ysum
     return final.scores[col].cpu().numpy(), num * num / (n * n1 - n1 * n1)
 
 
@@ -1423,6 +1450,173 @@ def phase_at_scale(workdir):
     return dict(k6=k6)
 
 
+# ---------------------------------------------------------------- phase 16
+
+def phase_probe_kernels(rows=1 << 21, n=1008, p=101):
+    """K9 through the exp_kernel tool, K8 on one flagship batch, K6 at the
+    probes' generator shapes. -> the launches of the tool's run, errors
+    and times."""
+    import torch
+    from kmersgwas_tpu_torch.ops import gen, score
+    from kmersgwas_tpu_torch.ops import tilereduce as tred
+    from kmersgwas_tpu_torch.tools import exp_kernel as ek
+    dev = torch.device("cuda")
+    # the tool as a user runs it: the twenty cases at (P_PAD 104, NT 128,
+    # TR 2048) on its tie-heavy plane; it raises unless every case's
+    # planes equal their plain versions and the JAX kernel's numpy function
+    tred.tile_reduce.launches = tred.tile_topc.launches = 0
+    recs = ek.main(device="cuda")
+    k9 = (tred.tile_reduce.launches, tred.tile_topc.launches)
+    need(len(recs) == 20 and all(r["equal_plain"] and r["equal_numpy"]
+                                 for r in recs), "K9: a case differs")
+    log("K9 exp_kernel: 20 cases bit-equal to plain and to the JAX "
+        "kernels' functions; kernel/plain ms " + ", ".join(
+            f"{r['case']} {r['kernel_ms']:.3f}/{r['plain_ms']:.3f}"
+            for r in recs))
+    fold = [r["fold_equals_first_argmax_frac"] for r in recs
+            if r["case"] in ("vi", "vif")]
+    log(f"K9: the halving fold equals the first argmax in {fold} of tiles "
+        f"(tie-heavy plane); tile_reduce launches {k9[0]}, tile_topc {k9[1]}")
+    x = torch.from_numpy(ek.tie_heavy()).to(dev)
+    th = torch.zeros(ek.P_PAD, device=dev)
+    m1 = tred.tile_reduce(x, None, n_tiles=ek.NT, planes=("m1",))["m1"]
+    t9 = (cuda_ms(lambda: tred.tile_reduce(x, th, n_tiles=ek.NT)),
+          cuda_ms(lambda: tred.tile_reduce_plain(x, th, n_tiles=ek.NT),
+                  reps=3),
+          cuda_ms(lambda: torch.max(x.view(ek.P_PAD, ek.NT, ek.TR), dim=2)),
+          cuda_ms(lambda: tred.tile_topc(m1)),
+          cuda_ms(lambda: tred.tile_topc_plain(m1), reps=3),
+          cuda_ms(lambda: torch.sort(m1, dim=1, descending=True,
+                                     stable=True)))
+    log(f"K9 tile_reduce (all seven planes, {tuple(x.shape)}): kernel "
+        f"{t9[0]:.3f} ms, plain {t9[1]:.3f} ms, torch.max(dim=2) "
+        f"{t9[2]:.3f} ms; tile_topc ({tuple(m1.shape)}): kernel {t9[3]:.3f} "
+        f"ms, plain {t9[4]:.3f} ms, torch.sort(stable) {t9[5]:.3f} ms")
+
+    kw = dict(n_used=n, min_count=51, tile_rows=4096, w=128)
+    err8, t8 = 0.0, None
+    for gaussian, prec in ((False, "default"), (True, "highest")):
+        packed, pc, yp, ysum = make_batch(rows, n, p, 7, 0, gaussian)
+        ps = score.scores_t_plain(packed, pc, yp, ysum, n_used=n,
+                                  min_count=51, precision=prec)
+        scale = col_scale(ps)
+        q = torch.topk(ps, 100, dim=1).values[:, -1].contiguous()
+        del ps
+        args = (packed, pc, yp, ysum, q)
+        got = score.score_batch_t_parity(*args, precision=prec, **kw)
+        torch.cuda.synchronize()
+        want = score.parity_plain(*args, precision=prec, **kw)
+        tag = f"K8 score_parity ({'gauss' if gaussian else 'dyadic'} {prec})"
+        if not gaussian:
+            need(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"{tag}: != parity_plain")
+            t8 = (cuda_ms(lambda: score.score_batch_t_parity(
+                      *args, precision=prec, **kw)),
+                  cuda_ms(lambda: score.parity_plain(
+                      *args, precision=prec, **kw), reps=3))
+        for i in (0, 2):
+            fin = torch.isfinite(want[i])
+            need(torch.equal(torch.isfinite(got[i]), fin),
+                 f"{tag}: -inf slots differ")
+            d = torch.where(fin, (got[i] - want[i]).abs(), 0.0)
+            err8 = max(err8, float(d.max()))
+            need(bool((d <= RTOL * (torch.where(fin, want[i].abs(), 0.0)
+                                    + scale)).all()),
+                 f"{tag}: values off by {float(d.max())}")
+        log(f"{tag}: lists A/B at tile 4096, w 128 checked against plain; "
+            f"ok columns {int(got[4].sum())}/{p}")
+        del packed, pc, got, want
+        torch.cuda.empty_cache()
+    log(f"K8 score_parity (R={rows}, N={n}, P={p}): kernel {t8[0]:.3f} ms, "
+        f"plain {t8[1]:.3f} ms; max abs err (gauss, highest) {err8:.3g}")
+
+    # K10: the probes' generators, (rows, 32) with and without popcounts
+    for g_rows in (1 << 19, 1 << 20, 1 << 21, 1 << 22, 1 << 23):
+        for pcnt in (True, False):
+            out = gen.gen_planes(g_rows, 32, 1 << 20, 5, dev, popcount=pcnt)
+            planes = out[0] if pcnt else out
+            want, want_pc = gen.gen_planes_plain(
+                torch.arange(g_rows, device=dev), 32, 1 << 20, 5)
+            need(torch.equal(planes, want)
+                 and (not pcnt or torch.equal(out[1], want_pc)),
+                 f"gen_planes ({g_rows}, 32) popcount={pcnt}: != plain")
+            ms = cuda_ms(lambda: gen.gen_planes(g_rows, 32, 1 << 20, 5, dev,
+                                                popcount=pcnt))
+            log(f"  K10 gen_planes ({g_rows}, 32) popcount={pcnt}: "
+                f"bit-equal to plain, {ms:.3f} ms")
+            del out, planes, want, want_pc
+    return dict(k9=k9, t9=t9, err8=err8, t8=t8)
+
+
+# ---------------------------------------------------------------- phase 17
+
+# the probes' headline variants at cut window counts (n_warm, n_ramp,
+# n_windows); P=1009 runs 4 ramp windows, the others 1
+PROBE_WINDOWS = {"prof_r5_pscale": (1, 4, 2)}
+
+
+def phase_probes():
+    """Each probe's headline variant through the probe tool on the card,
+    window counts cut. -> K8's launches on its variant."""
+    import torch
+    from kmersgwas_tpu_torch import bench
+    from kmersgwas_tpu_torch.ops import gen, score
+    from kmersgwas_tpu_torch.pipeline.scan import CERTIFY_EPS
+    from kmersgwas_tpu_torch.tools import probes
+    dev = torch.device("cuda")
+    card = bench.card_line(dev)
+    k8 = 0
+    for probe, name in probes.HEADLINE.items():
+        v = probes.variant(probe, name)
+        n_warm, n_ramp, n_win = PROBE_WINDOWS.get(probe, (1, 1, 2))
+        gen.gen_planes.launches = score.score_batch_t_parity.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        run = probes.run_variant(v, dev, card, n_warm=n_warm, n_ramp=n_ramp,
+                                 n_windows=n_win)
+        wall = time.perf_counter() - t0
+        rec = run.record
+        steps = v.s * (n_warm + n_ramp + n_win)
+        tag = f"probe {probe} {name}"
+        need(math.isfinite(rec["median_step_ms"])
+             and rec["median_step_ms"] > 0, f"{tag}: {rec}")
+        need(gen.gen_planes.launches == steps,
+             f"{tag}: K6 launched {gen.gen_planes.launches} times for "
+             f"{steps} steps")
+        if v.timed == "step":
+            timed = sum(rec["branches"].get(b, 0)
+                        for b in ("narrow", "wide", "fallback"))
+            need(run.steps == steps and timed == v.s * n_win,
+                 f"{tag}: {run.steps} steps, branches {rec['branches']}")
+        if v.kernel == "score_parity":
+            k8 = score.score_batch_t_parity.launches
+            need(k8 == steps, f"{tag}: K8 launched {k8} times")
+        log(f"{tag}: P={v.p}, {v.rows} rows per step, {steps} steps in "
+            f"{wall:.1f} s; median step {rec['median_step_ms']:.3f} ms, "
+            f"{rec['tests_per_s']:.4g} tests/s; ramp branches "
+            f"{rec['ramp_branches']}, timed {rec['branches']}; peak "
+            f"{rec['peak_device_gib']:.2f} GiB")
+        if probe == "prof_r5_pscale":
+            for col in (0, v.p - 1):
+                kept, exact = rescore_kept(run, col, operand=True)
+                err = np.abs(kept - exact) / np.abs(exact)
+                need(bool(np.isfinite(kept).all())
+                     and bool((err <= CERTIFY_EPS).all()),
+                     f"{tag}: kept scores of column {col} off their f64 "
+                     f"re-score by up to {err.max():.3g}")
+                _, f32y = rescore_kept(run, col)
+                err32 = np.abs(kept - f32y) / np.abs(f32y)
+                log(f"{tag}: all {len(kept)} kept rows of column {col}, "
+                    f"regenerated alone and re-scored in f64, within "
+                    f"{err.max():.3g} of their kept score with the bf16 "
+                    f"phenotypes the GEMM multiplies (CERTIFY_EPS "
+                    f"{CERTIFY_EPS}); {err32.max():.3g} with the f32 ones "
+                    "(the bf16 rounding, CERTIFY_EPS's subject)")
+        del run
+        torch.cuda.empty_cache()
+    return dict(k8=k8)
+
+
 # ---------------------------------------------------------------- record
 
 def bound_ms(n_bytes, ops, ops_per_s, bytes_per_s):
@@ -1434,7 +1628,8 @@ def bound_ms(n_bytes, ops, ops_per_s, bytes_per_s):
 
 
 def kernel_bounds(peaks, rows=2_097_152, n_used=1008, n_pad=1024, p=101,
-                  w=256, kin_rows=1 << 20, gen_rows=1 << 21, gen_w32=32):
+                  w=256, kin_rows=1 << 20, gen_rows=1 << 21, gen_w32=32,
+                  red_p=104, red_nt=128, red_tr=2048, parity_w=128):
     """Each kernel's bound at the shapes its time was taken at, at the
     card's peaks (`bench.CardPeaks`). Operations count what the function
     needs, not the padding: K1-K5 one flagship batch, the (R, N) x (N, P)
@@ -1442,7 +1637,11 @@ def kernel_bounds(peaks, rows=2_097_152, n_used=1008, n_pad=1024, p=101,
     the Gram of N samples, whose N (N + 1) / 2 entries on and above the
     diagonal are all the function needs (int8); K6 one generated batch, no
     operations that a peak counts (bytes: the planes and popcounts it
-    writes). Bytes: each input read once, each output written once."""
+    writes); K8 one flagship batch, K1's GEMM, its two (P, w) lists and ok
+    written; K9 tile_reduce the (104, 128 x 2048) f32 plane read and its
+    seven (104, 128) planes written, tile_topc the (104, 128) maxima read
+    and the sorted values and indices written: comparisons, which no
+    peak counts. Bytes: each input read once, each output written once."""
     w32 = n_pad // 32
     f4 = 4
     inputs = rows * w32 * f4 + rows * f4 + n_pad * p * f4 + p * f4
@@ -1464,6 +1663,12 @@ def kernel_bounds(peaks, rows=2_097_152, n_used=1008, n_pad=1024, p=101,
             peaks.hbm_bytes),
         "gen_planes": bound_ms(gen_rows * gen_w32 * f4 + gen_rows * f4, 0.0,
                                peaks.int8_ops, peaks.hbm_bytes),
+        "score_parity": score(2 * p * parity_w * 8 + p),
+        "tile_reduce": bound_ms(
+            (red_p * red_nt * red_tr + red_p + 7 * red_p * red_nt) * f4, 0.0,
+            peaks.int8_ops, peaks.hbm_bytes),
+        "tile_topc": bound_ms(3 * red_p * red_nt * f4, 0.0, peaks.int8_ops,
+                              peaks.hbm_bytes),
     }
 
 
@@ -1491,6 +1696,7 @@ def main():
         print(f"FAIL: no peaks known for {torch.cuda.get_device_name(0)} "
               "(kmersgwas_tpu_torch/bench.py CARD_PEAKS)", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     build = os.path.join(ROOT, "kmersgwas_tpu_torch", "build")
     os.makedirs(build, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="smoke_", dir=build)
@@ -1511,6 +1717,8 @@ def main():
         gres = phase_gen()
         bench_res = phase_bench(workdir)
         phase_at_scale(workdir)
+        k9res = phase_probe_kernels()
+        k8res = phase_probes()
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1533,13 +1741,26 @@ def main():
             ("kinship_gram", KINSHIP_SOURCE, KINSHIP_REPLACES, kin["k7"],
              0.0, t[10], t[11]),
             ("gen_planes", GEN_SOURCE, GEN_REPLACES, bench_res["k6"], 0.0,
-             *gres["times"])]
+             *gres["times"]),
+            ("score_parity", PARITY_SOURCE, PARITY_REPLACES, k8res["k8"],
+             k9res["err8"], *k9res["t8"]),
+            ("tile_reduce", REDUCE_SOURCE, REDUCE_REPLACES, k9res["k9"][0],
+             0.0, k9res["t9"][0], k9res["t9"][1]),
+            ("tile_topc", REDUCE_SOURCE, TOPC_REPLACES, k9res["k9"][1], 0.0,
+             k9res["t9"][3], k9res["t9"][4])]
+    library = {"tile_reduce": k9res["t9"][2], "tile_topc": k9res["t9"][5]}
+    idle = [r[0] for r in rows if r[3] <= 0]
+    if idle:
+        print(f"FAIL: kernels never launched on their path: {idle}",
+              file=sys.stderr)
+        return 1
     bounds = kernel_bounds(peaks, gen_rows=gres["rows"], gen_w32=gres["w32"])
+    log(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
          "bound_ms": bounds[nm][0], "bound_by": bounds[nm][1],
-         "library_ms": None}
+         "library_ms": library.get(nm)}
         for nm, src, rep, n, err, ms, pms in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

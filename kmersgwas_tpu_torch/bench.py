@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .core import formats
-from .ops import _cuda
+from .ops import _cuda, bitplanes
 from .ops import gen as gen_ops
 from .ops import scanstep as ss
 from .ops import score as score_ops
@@ -311,31 +311,54 @@ def kinship_streaming(n_rows: int = 8_000_000, batch_size: int = 1 << 20,
 
 
 def make_window(yp, ysum, *, n_used: int, min_count: int, rows: int,
-                steps: int, seed: int = BENCH_SEED, cand_w: int = CAND_W,
-                cand_k: int = CAND_K, cand_q: int = CAND_Q,
+                steps: int, seed: int = BENCH_SEED,
+                cand_w: int | None = CAND_W, cand_k: int = CAND_K,
+                cand_q: int | None = CAND_Q,
+                cand_c: int | None = None, cand_c2: int | None = None,
+                col_group: int = 128, precision: str = "default",
+                popcount: str = "fused", step=None,
                 counts: dict | None = None):
     """-> window(state, step) -> next step: `steps` scan steps, step s
     scoring batch s of the generated stream under `seed` (gen_planes on
     yp's device), its rows numbered s*rows + r (lo = s*rows + r, hi = 0,
-    so every id stays below 2^31). The state is updated in place."""
+    so every id stays below 2^31). The state is updated in place.
+
+    The step is `scan_step_compact` with the keywords given (cand_w None
+    selects `cand_c` mode). popcount: "fused" (the generator writes them),
+    "pass" (planes only, then the port's popcount pass) or "none" (planes
+    only, pc None). step: a callable (state, packed, pc, row_lo, row_hi)
+    run in place of the scan step (the probes time parts of a step)."""
     dev = yp.device
     w32 = yp.shape[0] // 32
     iota = torch.arange(rows, dtype=torch.int32, device=dev)
     hi0 = torch.zeros(rows, dtype=torch.int32, device=dev)
-
-    def window(state: ss.BufferedTopKState, step: int) -> int:
-        if (step + steps) * rows > ROW_ID_LIMIT:
-            raise ValueError(f"steps up to {step + steps} of {rows} rows "
-                             "number rows past 2^31")
-        for s in range(step, step + steps):
-            packed, pc = gen_ops.gen_planes(rows, w32, seed, s, dev)
+    if popcount not in ("fused", "pass", "none"):
+        raise ValueError(f"popcount must be fused, pass or none, got "
+                         f"{popcount!r}")
+    if step is None:
+        def step(state, packed, pc, lo, hi):
             ss.scan_step_compact(
-                state, packed, pc, iota + s * rows, hi0, yp, ysum,
-                n_used=n_used, min_count=min_count, cand_k=cand_k,
-                tile_rows=_cuda.TILE_ROWS, cand_w=cand_w, cand_q=cand_q,
-                counts=counts)
+                state, packed, pc, lo, hi, yp, ysum, n_used=n_used,
+                min_count=min_count, cand_k=cand_k,
+                tile_rows=_cuda.TILE_ROWS, cand_w=cand_w, cand_c=cand_c,
+                cand_c2=cand_c2, cand_q=cand_q, precision=precision,
+                col_group=col_group, counts=counts)
+
+    def window(state, first: int) -> int:
+        if (first + steps) * rows > ROW_ID_LIMIT:
+            raise ValueError(f"steps up to {first + steps} of {rows} rows "
+                             "number rows past 2^31")
+        for s in range(first, first + steps):
+            if popcount == "fused":
+                packed, pc = gen_ops.gen_planes(rows, w32, seed, s, dev)
+            else:
+                packed = gen_ops.gen_planes(rows, w32, seed, s, dev,
+                                            popcount=False)
+                pc = bitplanes.popcount_rows(packed) \
+                    if popcount == "pass" else None
+            step(state, packed, pc, iota + s * rows, hi0)
             del packed, pc
-        return step + steps
+        return first + steps
     return window
 
 

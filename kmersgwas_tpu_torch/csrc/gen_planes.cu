@@ -16,7 +16,10 @@
 // rows: the layout the port's score kernels read (the TPU generator wrote
 // transposed (w32, rows) planes only to skip a TPU relayout). pc[r] is the
 // f32 count of set bits over all w32 words of row r, padding lanes
-// included, as the TPU generator's fused popcount.
+// included, as the TPU generator's fused popcount. Given a null pc the
+// kernel writes the planes only, as the probes' generators without a fused
+// popcount do (tools/prof_r3.py:71, prof_r4.py:40, prof_window.py:30,
+// prof_window2.py:29).
 //
 // Design. One thread per (row, Philox block of 4 words); a row's blocks go
 // to a group of G = min(32, next power of 2 >= w32 / 4) consecutive lanes
@@ -70,6 +73,7 @@ __global__ void __launch_bounds__(kGenThreads) gen_planes_kernel(
             cnt += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
         }
     }
+    if (pc == nullptr) return;      // planes only (uniform over the grid)
     // every lane of the warp is here (no early exit), and a group never
     // straddles a warp: group divides 32
     for (int off = group >> 1; off > 0; off >>= 1)

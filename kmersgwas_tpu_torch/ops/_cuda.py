@@ -33,8 +33,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("score_topw.cu", "score_bmax.cu", "score_tilemax.cu",
            "score_t.cu", "score_rows.cu", "kinship_gram.cu",
-           "gen_planes.cu")
-HEADERS = ("score_common.cuh", "tile_top3.cuh")
+           "gen_planes.cu", "score_parity.cu", "tile_reduce.cu")
+HEADERS = ("score_common.cuh", "tile_top3.cuh", "score_topw.cuh")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)     # looked at after PATH
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -152,6 +152,25 @@ def library() -> KernelLib:
     lib.kgt_gen_planes.argtypes = [
         _P, _P, _LL, _I,               # planes, pc, rows, w32
         _ULL, _ULL,                    # seed, step
+        _P]                            # stream
+    lib.kgt_score_parity.restype = _I
+    lib.kgt_score_parity.argtypes = [
+        _P, _P, _P, _P, _P,            # packed, popcnt, y, ysum, thresh
+        _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
+        _I, _I, _I,                    # tile_rows, w, sort_cap
+        _P, _P, _P,                    # tile_v, tile_g, tile_cnt
+        _P, _P, _P,                    # mrg_v, mrg_g, mrg_cnt
+        _P, _P, _P,                    # out_v, out_g, out_ok
+        _P]                            # stream
+    lib.kgt_tile_reduce.restype = _I
+    lib.kgt_tile_reduce.argtypes = [
+        _P, _P, _I, _I, _I, _I,        # x, th, p, nt, tr, fold_to
+        _P, _P, _P, _P, _P, _P, _P,    # m1, a1, a1_fold, m2, a2_sum, n_eq, cnt
+        _P]                            # stream
+    lib.kgt_tile_topc.restype = _I
+    lib.kgt_tile_topc.argtypes = [
+        _P, _I, _I,                    # m1, p, nt
+        _P, _P,                        # out_v, out_i
         _P]                            # stream
     lib.kgt_error_string.restype = ctypes.c_char_p
     lib.kgt_error_string.argtypes = [_I]

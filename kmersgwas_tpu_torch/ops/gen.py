@@ -66,11 +66,13 @@ def _check_args(w32: int, seed: int, step) -> None:
         raise ValueError(f"step ({step}) must be in [0, 2^64)")
 
 
-def gen_planes_plain(row_ids: torch.Tensor, w32: int, seed: int, step):
+def gen_planes_plain(row_ids: torch.Tensor, w32: int, seed: int, step, *,
+                     popcount: bool = True):
     """The plain version: rows `row_ids` ((n,) integer tensor, each in
     [0, 2^32)) of batch `step` (an int, or an (n,) int64 tensor giving each
     row's batch in [0, 2^63)) under `seed`, in torch int64 arithmetic on
-    row_ids' device. -> ((n, W32) int32 planes, (n,) f32 popcounts)."""
+    row_ids' device. -> ((n, W32) int32 planes, (n,) f32 popcounts), or the
+    planes alone when popcount is False."""
     _check_args(w32, seed, step)
     r = row_ids.to(torch.int64)
     if r.numel() and (int(r.min()) < 0 or int(r.max()) > _MASK32):
@@ -91,12 +93,15 @@ def gen_planes_plain(row_ids: torch.Tensor, w32: int, seed: int, step):
                                       seed >> 32), dim=-1).reshape(-1, w32)
     planes = torch.where(words > 0x7FFFFFFF, words - (1 << 32),
                          words).to(torch.int32)
-    return planes, popcount_rows(planes)
+    return (planes, popcount_rows(planes)) if popcount else planes
 
 
-def gen_planes(rows: int, w32: int, seed: int, step: int, device):
+def gen_planes(rows: int, w32: int, seed: int, step: int, device, *,
+               popcount: bool = True):
     """Batch `step` of the stream under `seed`: ((rows, W32) int32 planes,
-    (rows,) f32 popcounts) on `device`. A CUDA device launches the
+    (rows,) f32 popcounts) on `device`, or the planes alone when popcount
+    is False (the kernel then writes no popcounts: the generators of the
+    probes that count in a separate pass). A CUDA device launches the
     gen_planes kernel on the current stream (or raises); the CPU takes
     gen_planes_plain."""
     _check_args(w32, seed, step)
@@ -104,20 +109,22 @@ def gen_planes(rows: int, w32: int, seed: int, step: int, device):
         raise ValueError(f"rows ({rows}) must be in (0, 2^32]")
     dev = torch.device(device)
     if dev.type == "cpu":
-        return gen_planes_plain(torch.arange(rows), w32, seed, step)
+        return gen_planes_plain(torch.arange(rows), w32, seed, step,
+                                popcount=popcount)
     if dev.type != "cuda":
         raise ValueError(f"no gen_planes for device {device!r}: the CPU "
                          "takes the plain version, CUDA the kernel")
     planes = torch.empty((rows, w32), dtype=torch.int32, device=dev)
-    pc = torch.empty(rows, dtype=torch.float32, device=dev)
+    pc = torch.empty(rows, dtype=torch.float32, device=dev) \
+        if popcount else None
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.lib.kgt_gen_planes(
-            planes.data_ptr(), pc.data_ptr(), rows, w32, seed, step,
-            torch.cuda.current_stream(dev).cuda_stream)
+            planes.data_ptr(), pc.data_ptr() if popcount else None, rows,
+            w32, seed, step, torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc, "gen_planes")
     gen_planes.launches += 1
-    return planes, pc
+    return (planes, pc) if popcount else planes
 
 
 gen_planes.launches = 0

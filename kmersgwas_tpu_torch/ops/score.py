@@ -125,6 +125,31 @@ def scores_and_bmax_plain(packed, popcnt, y_padded, y_sum, *, n_used: int,
     return sc, sc.view(p, -1, block).amax(dim=-1)
 
 
+def _tile_top3(sc, thresh, tile_rows: int):
+    """Per tile of `tile_rows` lanes of (P, R) scores: the exact top-3
+    (values (P, T, 3), batch lanes (P, T, 3) int32), lowest lane first on
+    ties, and the guard ok (P,): no tile holds more than 3 lanes > thresh."""
+    p, r = sc.shape
+    assert r % tile_rows == 0 and tile_rows >= 3
+    t = r // tile_rows
+    s3 = sc.view(p, t, tile_rows)
+    v3, a3 = top_k(s3, 3)                                 # (P, T, 3)
+    ok = ((s3 > thresh[:, None, None]).sum(dim=-1) <= 3).all(dim=1)
+    lanes = a3 + (torch.arange(t, device=sc.device) * tile_rows)[None, :, None]
+    return v3, lanes.to(torch.int32), ok
+
+
+def _select(cat_v, cat_g, w: int):
+    """Top `w` of (P, n) candidates by (value desc, lane asc), padded with
+    (-inf, 0) when there are fewer."""
+    if cat_v.shape[1] < w:
+        pad = w - cat_v.shape[1]
+        cat_v = torch.nn.functional.pad(cat_v, (0, pad), value=float("-inf"))
+        cat_g = torch.nn.functional.pad(cat_g, (0, pad))
+    v, g = sort_desc_index_asc(cat_v, cat_g)
+    return v[:, :w].contiguous(), g[:, :w].contiguous()
+
+
 def topw_plain(packed, popcnt, y_padded, y_sum, thresh, *, n_used: int,
                min_count: int, tile_rows: int, cand_w: int,
                precision: str = "default"):
@@ -137,21 +162,30 @@ def topw_plain(packed, popcnt, y_padded, y_sum, thresh, *, n_used: int,
     -> (values (P, W) f32, lanes (P, W) int32, ok (P,) bool)."""
     sc = scores_t_plain(packed, popcnt, y_padded, y_sum, n_used=n_used,
                         min_count=min_count, precision=precision)
-    p, r = sc.shape
-    assert r % tile_rows == 0 and tile_rows >= 3
-    t = r // tile_rows
-    s3 = sc.view(p, t, tile_rows)
-    v3, a3 = top_k(s3, 3)                                 # (P, T, 3)
-    ok = ((s3 > thresh[:, None, None]).sum(dim=-1) <= 3).all(dim=1)
-    lanes = a3 + (torch.arange(t, device=sc.device) * tile_rows)[None, :, None]
-    cat_v = v3.reshape(p, 3 * t)
-    cat_g = lanes.reshape(p, 3 * t).to(torch.int32)
-    if 3 * t < cand_w:
-        pad = cand_w - 3 * t
-        cat_v = torch.nn.functional.pad(cat_v, (0, pad), value=float("-inf"))
-        cat_g = torch.nn.functional.pad(cat_g, (0, pad))
-    v, g = sort_desc_index_asc(cat_v, cat_g)
-    return v[:, :cand_w].contiguous(), g[:, :cand_w].contiguous(), ok
+    v3, lanes, ok = _tile_top3(sc, thresh, tile_rows)
+    p = sc.shape[0]
+    return (*_select(v3.reshape(p, -1), lanes.reshape(p, -1), cand_w), ok)
+
+
+def parity_plain(packed, popcnt, y_padded, y_sum, thresh, *, n_used: int,
+                 min_count: int, tile_rows: int = 4096, w: int = 128,
+                 precision: str = "default"):
+    """Plain version of the score_parity kernel (the two-list epilogue of
+    tools/prof_r5_epi.py `_parity_kernel`, :419-491): per probe tile of
+    `tile_rows` lanes the exact top-3 (score, lane); list A is the top `w`
+    of the even tiles' candidates, list B of the odd tiles', each by (score
+    desc, lane asc) and padded with (-inf, 0); ok: no probe tile holds more
+    than 3 lanes scoring > thresh. -> (va, ga, vb, gb, ok): (P, w) f32 and
+    int32 batch lanes, (P,) bool."""
+    sc = scores_t_plain(packed, popcnt, y_padded, y_sum, n_used=n_used,
+                        min_count=min_count, precision=precision)
+    v3, lanes, ok = _tile_top3(sc, thresh, tile_rows)
+    p = sc.shape[0]
+    va, ga = _select(v3[:, 0::2].reshape(p, -1), lanes[:, 0::2].reshape(p, -1),
+                     w)
+    vb, gb = _select(v3[:, 1::2].reshape(p, -1), lanes[:, 1::2].reshape(p, -1),
+                     w)
+    return va, ga, vb, gb, ok
 
 
 def tilemax_from_scores(sc, thresh, tile_rows: int):
@@ -347,6 +381,65 @@ def score_batch_t_topw(packed, popcnt, y_padded, y_sum, thresh, *,
 
 
 score_batch_t_topw.launches = 0
+
+
+def score_batch_t_parity(packed, popcnt, y_padded, y_sum, thresh, *,
+                         n_used: int, min_count: int, tile_rows: int = 4096,
+                         w: int = 128, precision: str = "default"):
+    """Two-list top-W epilogue of the step-budget probe
+    (csrc/score_parity.cu; replaces tools/prof_r5_epi.py `_parity_kernel`):
+    -> (va, ga, vb, gb, ok) as parity_plain defines them. On the card
+    tile_rows must be a multiple of the kernel's TILE_ROWS dividing the
+    batch rows, and 1 <= w <= 1024."""
+    if packed.device.type == "cpu":
+        return parity_plain(packed, popcnt, y_padded, y_sum, thresh,
+                            n_used=n_used, min_count=min_count,
+                            tile_rows=tile_rows, w=w, precision=precision)
+    _require_cuda(packed)
+    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
+                                                y_sum, precision)
+    if tile_rows <= 0 or tile_rows % _cuda.TILE_ROWS or rows % tile_rows:
+        raise ValueError(f"tile_rows ({tile_rows}) must be a multiple of "
+                         f"{_cuda.TILE_ROWS} dividing the rows ({rows})")
+    if not 1 <= w <= 1024:
+        raise ValueError(f"w must be in [1, 1024], got {w}")
+    dev = packed.device
+    if thresh.shape != (p,) or thresh.dtype != torch.float32 \
+            or thresh.device != dev:
+        raise ValueError("thresh must be a (P,) float32 tensor on the card")
+    th = torch.full((p_pad,), float("inf"), dtype=torch.float32, device=dev)
+    th[:p] = thresh
+    n_tiles = rows // _cuda.TILE_ROWS
+    n_probe = rows // tile_rows
+    tile_v = torch.empty((p, 3 * n_tiles), dtype=torch.float32, device=dev)
+    tile_g = torch.empty((p, 3 * n_tiles), dtype=torch.int32, device=dev)
+    tile_cnt = torch.empty((p, n_tiles), dtype=torch.int32, device=dev)
+    merged = tile_rows > _cuda.TILE_ROWS
+    mrg_v = torch.empty((p, 3 * n_probe) if merged else (0,),
+                        dtype=torch.float32, device=dev)
+    mrg_g = torch.empty_like(mrg_v, dtype=torch.int32)
+    mrg_cnt = torch.empty((p, n_probe) if merged else (0,),
+                          dtype=torch.int32, device=dev)
+    out_v = torch.empty((2, p, w), dtype=torch.float32, device=dev)
+    out_g = torch.empty((2, p, w), dtype=torch.int32, device=dev)
+    out_ok = torch.empty((p,), dtype=torch.int32, device=dev)
+    sort_cap = 1 << (w - 1).bit_length()
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = lib.lib.kgt_score_parity(
+            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
+            ys.data_ptr(), th.data_ptr(), rows, w32, p, p_pad,
+            float(n_used), float(min_count), tile_rows, w, sort_cap,
+            tile_v.data_ptr(), tile_g.data_ptr(), tile_cnt.data_ptr(),
+            mrg_v.data_ptr(), mrg_g.data_ptr(), mrg_cnt.data_ptr(),
+            out_v.data_ptr(), out_g.data_ptr(), out_ok.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "score_parity")
+    score_batch_t_parity.launches += 1
+    return out_v[0], out_g[0], out_v[1], out_g[1], out_ok.bool()
+
+
+score_batch_t_parity.launches = 0
 
 
 def score_batch_t_bmax(packed, popcnt, y_padded, y_sum, *, n_used: int,

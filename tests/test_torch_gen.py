@@ -97,6 +97,18 @@ def test_cpu_wrapper_takes_the_plain_version():
     assert gen.gen_planes.launches == before      # no kernel on the CPU
 
 
+@pytest.mark.parametrize("rows,w32", [(300, 32), (77, 4)])
+def test_planes_without_popcounts_are_the_same_planes(rows, w32):
+    """popcount=False (the probes' generators without a fused popcount)
+    gives the planes of popcount=True and nothing else."""
+    planes, _ = gen.gen_planes(rows, w32, 9, 3, "cpu")
+    alone = gen.gen_planes(rows, w32, 9, 3, "cpu", popcount=False)
+    plain = gen.gen_planes_plain(torch.arange(rows), w32, 9, 3,
+                                 popcount=False)
+    assert isinstance(alone, torch.Tensor) and isinstance(plain, torch.Tensor)
+    assert torch.equal(alone, planes) and torch.equal(plain, planes)
+
+
 def test_batch_regenerates_from_seed_and_step():
     p1, c1 = gen.gen_planes(4096, 32, 5, 17, "cpu")
     p2, c2 = gen.gen_planes(4096, 32, 5, 17, "cpu")

@@ -240,3 +240,35 @@ def test_distributed_scan_on_card_equals_cpu_and_associate(cuda, tmp_path):
         for other in (cpu[0][j], (ref.scores[j], ref.rows[j])):
             np.testing.assert_array_equal(got[0][j][1], other[1])
             np.testing.assert_array_equal(got[0][j][0], other[0])
+
+
+@pytest.mark.parametrize("tr", [16, 256, 2048])
+def test_tile_reduce_kernels_equal_plain(cuda, tr):
+    """K9: every case of the exp_kernel tool, kernel planes bit-equal to
+    the plain versions and to the JAX kernels' numpy functions."""
+    from kmersgwas_tpu_torch.tools import exp_kernel
+    x = exp_kernel.tie_heavy(104, 32, tr, seed=tr)
+    for name in exp_kernel.CASES:
+        rec = exp_kernel.run_case(name, x, 32, cuda, timing=False)
+        assert rec["equal_plain"] and rec["equal_numpy"], rec
+
+
+@pytest.mark.parametrize("tile_rows,w", [(128, 8), (512, 128), (4096, 128)])
+def test_parity_kernel_equals_plain(cuda, tile_rows, w):
+    packed, pc, yp, ysum = batch(8192, 1008, 101, 5, cuda)
+    kw = dict(n_used=1008, min_count=5, tile_rows=tile_rows, w=w)
+    sc = score.scores_t_plain(packed, pc, yp, ysum, n_used=1008, min_count=5)
+    q = torch.topk(sc, 16, dim=1).values[:, -1].contiguous()
+    before = score.score_batch_t_parity.launches
+    for th in (q, torch.full((101,), float("inf"), device=cuda)):
+        got = score.score_batch_t_parity(packed, pc, yp, ysum, th, **kw)
+        want = score.parity_plain(packed, pc, yp, ysum, th, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert score.score_batch_t_parity.launches == before + 2
+
+
+def test_gen_planes_without_popcounts(cuda):
+    planes, _ = gen.gen_planes(1 << 16, 32, 3, 9, cuda)
+    alone = gen.gen_planes(1 << 16, 32, 3, 9, cuda, popcount=False)
+    assert torch.equal(planes, alone)
