@@ -9,11 +9,16 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. environment: the card's name and power limit, CUDA and nvcc versions,
      the kernels' build from csrc/ (one nvcc per source, in parallel);
   2. kernels against their plain PyTorch versions on the card, at small
-     shapes and at one flagship batch (R=2,097,152, N=1008, P=101, W=256):
+     shapes (P up to 1013, eight column chunks of K1's and K3's tensor-core
+     body) and at one flagship batch (R=2,097,152, N=1008, P=101, W=256):
      K1-K5 bit-equal on dyadic phenotypes, within a stated tolerance on
      Gaussian ones at precision "highest", with times; K3 (score_tilemax)
      also on batches with runs of equal rows inside tiles (tied 2nd/3rd
-     values); K7 (kinship_gram) bit-equal to the plain +-1 Gram at 2^20
+     values), its tiles' top 3 equal to K1's list on Gaussian ones; K1's
+     tile and select launches timed apart and K3 timed, at both
+     precisions, beside a GEMM-only yardstick (a bf16 torch.matmul of the
+     pre-unpacked bits, which computes no score); K7 (kinship_gram)
+     bit-equal to the plain +-1 Gram at 2^20
      rows x N=1008, also at a ragged n_rows (2^20 - 37) with a random
      tail, with times;
   3. the main path, `associate` on the dtable route at its real shape
@@ -88,6 +93,7 @@ the script fails at once.
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import struct
@@ -195,9 +201,31 @@ def phase_env():
         f"{lib.build_seconds if lib.build_seconds is not None else 0:.1f} s"
         f" (load {time.perf_counter() - t0:.1f} s)")
     for ln in lib.log.splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln \
+                or "wgmma" in ln:
             log("  ptxas: " + ln.strip())
+    bad = tensor_core_spills(lib.log)
+    need(not bad, "the tensor-core kernels spill or serialize their "
+         "products:\n" + "\n".join(bad))
+    log("tensor-core kernels (score_topw_tiles, score_tilemax): no spills, "
+        "no serialized products")
     return card
+
+
+def tensor_core_spills(ptxas_log):
+    """The ptxas lines (-v) that report spills of the tensor-core kernels
+    (csrc/score_wgmma.cuh's body) or products that ptxas serialized."""
+    bad, kernel = [], ""
+    for ln in ptxas_log.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1]
+        elif "wgmma" in ln and "serialized" in ln:
+            bad.append(ln.strip())
+        elif "score_topw_tiles" in kernel or "score_tilemax" in kernel:
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            if m and int(m.group(1)):
+                bad.append(f"{kernel}: {ln.strip()}")
+    return bad
 
 
 # ---------------------------------------------------------------- phase 2
@@ -246,17 +274,18 @@ def tie_runs(packed):
 def check_tilemax_at(packed, yp, ysum, gaussian, prec, kw, label, timing):
     """K3 against its plain version on the tie-run variant of a batch, at
     thresholds -inf, a high quantile and +inf. Dyadic phenotypes: all nine
-    planes bit-equal. Gaussian ones: the planes equal the plain selection
-    over K2's scores (K3's arithmetic) bit for bit; the values are within
-    the RTOL bound of the plain version's, and lanes and counts equal it
-    wherever the values (for cnt: every lane's side of thresh) agree.
+    planes bit-equal. Gaussian ones: the values are within the RTOL bound
+    of the plain version's, lanes and n2/n3 equal it wherever the values
+    agree, cnt wherever no lane's plain score lies within the RTOL bound
+    of thresh; where K1's list can hold every tile's top 3 (3 x tiles <=
+    1024), the three (value, lane) pairs of every tile equal K1's list
+    exactly (K1 and K3 share the tensor-core body).
     -> (max abs err of the values, (kernel ms, plain ms) or None)."""
     import torch
     from kmersgwas_tpu_torch.ops import score
     packed, pc = tie_runs(packed)
     p = yp.shape[1]
-    ks, _ = score.score_batch_t_bmax(packed, pc, yp, ysum, precision=prec,
-                                     **kw)
+    n_tiles = packed.shape[0] // 128
     ps = score.scores_t_plain(packed, pc, yp, ysum, precision=prec, **kw)
     scale = col_scale(ps)
     kth = max(1, min(100, packed.shape[0] // 64))
@@ -280,9 +309,18 @@ def check_tilemax_at(packed, yp, ysum, gaussian, prec, kw, label, timing):
             need(all(torch.equal(a, b) for a, b in zip(got, want)),
                  f"{tag}: planes != plain")
             continue
-        same = score.tilemax_from_scores(ks, th, 128)
-        need(all(torch.equal(a, b) for a, b in zip(got, same)),
-             f"{tag}: planes != the plain selection over K2's scores")
+        if 3 * n_tiles <= 1024:
+            kv, kg, _ = score.score_batch_t_topw(
+                *args, tile_rows=128, cand_w=3 * n_tiles, precision=prec,
+                **kw)
+            base = 128 * torch.arange(n_tiles, device="cuda")[None, :, None]
+            v3 = torch.stack((got[0], got[2], got[4]), dim=-1)
+            g3 = torch.stack((got[1], got[3], got[5]), dim=-1) + base
+            sv, sg = score._select(v3.reshape(p, -1),
+                                   g3.reshape(p, -1).to(torch.int32),
+                                   3 * n_tiles)
+            need(torch.equal(sv, kv) and torch.equal(sg, kg),
+                 f"{tag}: the tiles' top 3 differ from K1's list")
         eq = []
         for i in (0, 2, 4):
             fin = torch.isfinite(want[i])
@@ -296,7 +334,8 @@ def check_tilemax_at(packed, yp, ysum, gaussian, prec, kw, label, timing):
             eq.append((got[i] == want[i]) | ~fin)
         m1, m2, m3 = eq[0], eq[0] & eq[1], eq[0] & eq[1] & eq[2]
         t = th[:, None]
-        agree = ~((ks > t) != (ps > t)).view(p, -1, 128).any(dim=-1)
+        band = RTOL * (torch.where(torch.isfinite(t), t.abs(), 0.0) + scale)
+        agree = ~((ps - t).abs() <= band).view(p, -1, 128).any(dim=-1)
         for i, m in ((1, m1), (3, m2), (6, m2), (5, m3), (7, m3),
                      (8, agree)):
             need(torch.equal(got[i][m], want[i][m]),
@@ -418,9 +457,15 @@ def check_kernels_at(rows, n, p, w, seed, label, timing=False):
                      f"{label}: K1 != plain ({prec}, dyadic, th {th_name})")
             # ok (with the caller's W-th <= thresh check) is conservative:
             # every lane scoring > thresh is in the list, with its score
+            # (Gaussian: every lane whose plain score is above thresh by
+            # more than the RTOL bound; K1's own scores are not at hand)
             ok_eff = kok & (kv[:, -1] <= th)
+            band = (RTOL * (torch.where(torch.isfinite(th), th.abs(), 0.0)
+                            + col_scale(ps)[:, 0]) if gaussian
+                    else torch.zeros_like(th))
             for c in torch.nonzero(ok_eff).flatten().tolist():
-                hot = torch.nonzero(ks[c] > th[c]).flatten()
+                hot = torch.nonzero((ps[c] if gaussian else ks[c])
+                                    > th[c] + band[c]).flatten()
                 pos = torch.isin(hot, kg[c])
                 need(bool(pos.all()), f"{label}: column {c} ok but a hot "
                      f"lane is missing (th {th_name})")
@@ -484,13 +529,65 @@ def check_kinship_at(rows, n, n_rows, seed, label, timing=False):
                     reps=3))
 
 
+def time_step_kernels(rows=2_097_152, n=1008, p=101, w=256):
+    """K1 (its tile and select launches apart) and K3 on one flagship batch
+    at both precisions; the same at N=100 ("default"), whose k loop is 2
+    ring stages against 16, so the difference is the k loop's share of the
+    tile launch; and a GEMM-only yardstick: the bf16 torch.matmul of the
+    flagship's bits, unpacked beforehand, by (N_pad, P rounded up to 8).
+    The yardstick computes no score and no selection, so it is no
+    library_ms: it shows what the product alone costs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kmersgwas_tpu_torch.ops import bitplanes, score
+    # the flagship last: the yardstick multiplies its bits
+    for n_s, precs in ((100, ("default",)), (n, ("default", "highest"))):
+        packed, pc, yp, ysum = make_batch(rows, n_s, p, 7, 0, False)
+        kw = dict(n_used=n_s, min_count=5)
+        ps = score.scores_t_plain(packed, pc, yp, ysum, **kw)
+        q = torch.topk(ps, 100, dim=1).values[:, -1].contiguous()
+        del ps
+        args = (packed, pc, yp, ysum, q)
+        for prec in precs:
+            def k1():
+                return score.score_batch_t_topw(*args, tile_rows=128,
+                                                cand_w=w, precision=prec,
+                                                **kw)
+            t_k1 = cuda_ms(k1)
+            t_k3 = cuda_ms(lambda: score.score_batch_t_tilemax(
+                *args, tile_rows=128, precision=prec, **kw))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    k1()
+                torch.cuda.synchronize()
+            _, per = device_busy(prof)
+            tile = sum(t for k, t in per.items()
+                       if "score_topw_tiles" in k) / 5
+            sel = sum(t for k, t in per.items() if "topw_select" in k) / 5
+            log(f"{'flagship' if n_s == n else f'N={n_s}'} {prec}: K1 "
+                f"score_topw {t_k1:.3f} ms (tile launch {tile:.3f} ms, "
+                f"select launch {sel:.3f} ms by the profiler), K3 "
+                f"score_tilemax {t_k3:.3f} ms (median CUDA-event times)")
+    g = bitplanes.unpack_bits(packed, torch.bfloat16)
+    yb = torch.zeros((g.shape[1], -(-p // 8) * 8), dtype=torch.bfloat16,
+                     device="cuda")
+    yb[:, :p] = yp.to(torch.bfloat16)
+    t_mm = cuda_ms(lambda: torch.matmul(g, yb))
+    log(f"GEMM-only yardstick: bf16 torch.matmul {tuple(g.shape)} x "
+        f"{tuple(yb.shape)} of the bits unpacked beforehand: {t_mm:.3f} ms "
+        f"(no score, no selection; not the kernels' function)")
+    del g, yb
+    torch.cuda.empty_cache()
+
+
 def phase_kernels():
     """-> the largest errors measured over every shape (Gaussian phenotypes
     at "highest"; dyadic ones are checked bit-equal) and the flagship
     times."""
     e = [0.0] * 5
     for rows, n, p, w in ((1024, 100, 3, 16), (1024, 100, 70, 256),
-                          (4096, 1008, 101, 256)):
+                          (1024, 300, 1013, 64), (4096, 1008, 101, 256)):
         *errs, _ = check_kernels_at(rows, n, p, w, seed=rows + p,
                                     label=f"R={rows} N={n} P={p} W={w}")
         e = [max(a, b) for a, b in zip(e, errs)]
@@ -505,6 +602,7 @@ def phase_kernels():
         f"plain {times[9]:.3f} ms (median CUDA-event times)")
     log(f"max abs err over all shapes (gaussian, highest): K1 {e[0]:.3g}, "
         f"K2 {e[1]:.3g}, K3 {e[2]:.3g}, K4 {e[3]:.3g}, K5 {e[4]:.3g}")
+    time_step_kernels()
     for rows, n, n_rows in ((4096, 100, 4001), (640, 300, 1),
                             (20_000, 1008, 19_963)):
         check_kinship_at(rows, n, n_rows, seed=rows + n,

@@ -13,8 +13,9 @@
 // guard exist for its sum-encoded lanes and have no counterpart.
 //
 // Design: three launches.
-//   A. K1's tile launch (score_topw.cuh), unchanged: per 128-row tile and
-//      column the exact top-3 and the hot count.
+//   A. K1's tile launch (score_topw.cuh, defined in score_topw.cu): per
+//      128-row tile and column the exact top-3 and the hot count, on the
+//      tensor cores (score_wgmma.cuh).
 //   M. merge (only when tile_rows > 128): one thread per (column, probe
 //      tile) inserts the tile_rows/128 sub-tiles' top-3s into the probe
 //      tile's top-3 (the lowest lane wins ties: the top-3 of the union of
@@ -22,8 +23,8 @@
 //   B. K1's select launch with two lists: block (column, L) selects list
 //      L's top-W from the tiles t with t % 2 == L.
 //
-// What bounds it. Launch A, as K1: the (R, N) x (N, P) product on CUDA
-// cores (2.1M x 1024 x 128 f32 FMAs at the flagship batch). M reads 24 B
+// What bounds it. Launch A, as K1: the (R, N) x (N, P) score product on
+// the tensor cores (4.3e11 FLOP at the flagship batch). M reads 24 B
 // per (column, 128-row tile) and B reads the merged candidates of its
 // column, both L2-sized at the flagship batch.
 #include <climits>
@@ -64,23 +65,24 @@ __global__ void __launch_bounds__(THREADS) parity_merge_kernel(
 
 }  // namespace kgt
 
+// b, ysum, thresh: as launch_topw_tiles takes them (score_topw.cuh);
 // tile_*: (p, 3*R/128) and (p, R/128) scratch of launch A; mrg_*: (p,
 // 3*R/tile_rows) and (p, R/tile_rows) scratch of the merge (unused when
 // tile_rows == 128); out_v/out_g: (2, p, w) lists A and B; out_ok: (p,).
 extern "C" int kgt_score_parity(
-        const uint32_t* packed, const float* popcnt, const float* y,
+        const uint32_t* packed, const float* popcnt, const void* b,
         const float* ysum, const float* thresh, long long n_rows, int w32,
-        int p, int p_pad, float n_used, float min_count, int tile_rows,
-        int w, int sort_cap, float* tile_v, int* tile_g, int* tile_cnt,
-        float* mrg_v, int* mrg_g, int* mrg_cnt, float* out_v, int* out_g,
-        int* out_ok, void* stream) {
+        int p, int nc, int n_cc, int planes, float n_used, float min_count,
+        int tile_rows, int w, int sort_cap, float* tile_v, int* tile_g,
+        int* tile_cnt, float* mrg_v, int* mrg_g, int* mrg_cnt, float* out_v,
+        int* out_g, int* out_ok, void* stream) {
     using namespace kgt;
     if (tile_rows <= 0 || tile_rows % TILE_ROWS || n_rows % tile_rows)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t e = launch_topw_tiles(
-        packed, popcnt, y, ysum, thresh, n_rows, w32, p, p_pad, n_used,
-        min_count, tile_v, tile_g, tile_cnt, st);
+        packed, popcnt, b, ysum, thresh, n_rows, w32, p, nc, n_cc, planes,
+        n_used, min_count, tile_v, tile_g, tile_cnt, st);
     if (e != cudaSuccess) return (int)e;
     const int n_tiles = (int)(n_rows / TILE_ROWS);
     const int m = tile_rows / TILE_ROWS;

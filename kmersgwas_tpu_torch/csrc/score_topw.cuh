@@ -1,11 +1,12 @@
 // The two launches of the top-W scan kernels: shared by score_topw.cu (K1)
 // and score_parity.cu (K8's two-list epilogue).
 //
-//   score_topw_tiles_kernel: one block per (128-row tile, 64-column chunk)
-//      scores its tile (score_common.cuh) and writes, per (column, tile),
-//      the top-3 (score, batch lane) with the lowest lane winning ties, and
-//      the count of lanes scoring > thresh. The 128 rows of a column live in
-//      one warp, so both reductions are warp shuffles (tile_top3.cuh).
+//   launch_topw_tiles (defined in score_topw.cu): one block per (128-row
+//      tile, column chunk) scores its tile on the tensor cores
+//      (score_wgmma.cuh) and writes, per (column, tile), the top-3 (score,
+//      batch lane) with the lowest lane winning ties, and the count of lanes
+//      scoring > thresh. A warp holds all 128 rows of a column, so both
+//      reductions are warp shuffles (tile_top3.cuh).
 //   topw_select_kernel: one block per (column, list) takes the exact top-W
 //      of its list's candidates by (score desc, lane asc) with a radix
 //      select on a 64-bit key, sorts them (bitonic, shared memory) and ANDs
@@ -15,50 +16,24 @@
 //      padded with (-inf, 0), as the reference's XLA mirror pads
 //      (kmersgwas_tpu/ops/scanstep.py `_topw_xla`).
 //
-// Both kernels have internal linkage (static), so each source that includes
-// this header carries its own copy and the objects link into one library.
+// The select kernel has internal linkage (static), so each source that
+// includes this header carries its own copy and the objects link into one
+// library.
 #pragma once
 
 #include "tile_top3.cuh"
 
 namespace kgt {
 
-static __global__ void __launch_bounds__(THREADS) score_topw_tiles_kernel(
-        const uint32_t* __restrict__ packed, const float* __restrict__ popcnt,
-        const float* __restrict__ y, const float* __restrict__ ysum,
-        const float* __restrict__ thresh, int w32, int p, int p_pad,
-        float n_used, float min_count, float* __restrict__ tile_v,
-        int* __restrict__ tile_g, int* __restrict__ tile_cnt) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const long long tile = blockIdx.x;
-    const long long n_tiles = gridDim.x;
-    const long long row0 = tile * TILE_ROWS;
-    const int c0 = blockIdx.y * TILE_COLS;
-    const int tr = threadIdx.x & 31;
-    const int tc = threadIdx.x >> 5;
-
-    float s[TM_R][TM_C];
-    score_tile(packed, popcnt, y, ysum, row0, c0, w32, p_pad, n_used,
-               min_count, smem, s);
-
-#pragma unroll
-    for (int j = 0; j < TM_C; ++j) {
-        const int c = c0 + tc * TM_C + j;
-        const float th = thresh[c];
-        const Top3 t = column_top3(s, j, tr);
-        const int cnt = column_count(s, j, [th](float v) { return v > th; });
-        if (tr == 0 && c < p) {
-            const size_t base = (size_t)c * 3 * n_tiles + 3 * tile;
-            tile_v[base] = t.v0;
-            tile_v[base + 1] = t.v1;
-            tile_v[base + 2] = t.v2;
-            tile_g[base] = (int)(row0 + t.i0);
-            tile_g[base + 1] = (int)(row0 + t.i1);
-            tile_g[base + 2] = (int)(row0 + t.i2);
-            tile_cnt[(size_t)c * n_tiles + tile] = cnt;
-        }
-    }
-}
+// Launch A on `st`: b is the (n_cc, N_pad / 64, planes, nc / 8, 8, 8, 8)
+// bf16 operand of ops/score.wgmma_operand; ysum and thresh are padded to
+// n_cc * nc columns. tile_v/tile_g: (p, 3 * n_tiles), tile_cnt: (p,
+// n_tiles). Returns the launch's error code.
+cudaError_t launch_topw_tiles(
+        const uint32_t* packed, const float* popcnt, const void* b,
+        const float* ysum, const float* thresh, long long n_rows, int w32,
+        int p, int nc, int n_cc, int planes, float n_used, float min_count,
+        float* tile_v, int* tile_g, int* tile_cnt, cudaStream_t st);
 
 // 64-bit key ordered like (score desc, lane asc): the float's order-
 // preserving bit pattern above the complemented lane. Key 0 sorts below
@@ -182,24 +157,6 @@ static __global__ void __launch_bounds__(THREADS) topw_select_kernel(
         out_g[o + i] = key_lane(keys[i]);
     }
     if (threadIdx.x == 0 && list == 0) out_ok[c] = good;
-}
-
-// Launch A on `st`; returns the launch's error code.
-static inline cudaError_t launch_topw_tiles(
-        const uint32_t* packed, const float* popcnt, const float* y,
-        const float* ysum, const float* thresh, long long n_rows, int w32,
-        int p, int p_pad, float n_used, float min_count, float* tile_v,
-        int* tile_g, int* tile_cnt, cudaStream_t st) {
-    const size_t smem = tile_smem_bytes(w32);
-    cudaError_t e = cudaFuncSetAttribute(
-        score_topw_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    score_topw_tiles_kernel<<<dim3((unsigned)(n_rows / TILE_ROWS),
-                                   p_pad / TILE_COLS), THREADS, smem, st>>>(
-        packed, popcnt, y, ysum, thresh, w32, p, p_pad, n_used, min_count,
-        tile_v, tile_g, tile_cnt);
-    return cudaGetLastError();
 }
 
 }  // namespace kgt

@@ -34,7 +34,8 @@ BUILD = os.path.join(_PKG, "build")
 SOURCES = ("score_topw.cu", "score_bmax.cu", "score_tilemax.cu",
            "score_t.cu", "score_rows.cu", "kinship_gram.cu",
            "gen_planes.cu", "score_parity.cu", "tile_reduce.cu")
-HEADERS = ("score_common.cuh", "tile_top3.cuh", "score_topw.cuh")
+HEADERS = ("score_common.cuh", "tile_top3.cuh", "score_topw.cuh",
+           "score_wgmma.cuh")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)     # looked at after PATH
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -42,9 +43,19 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # block tile of the kernels (csrc/score_common.cuh TILE_ROWS / TILE_COLS):
 # batch rows must be a multiple of TILE_ROWS, and the top-3 captures of
-# score_topw and score_tilemax are per TILE_ROWS-row tile
+# score_topw and score_tilemax are per TILE_ROWS-row tile. TILE_COLS is the
+# column chunk of the FMA body (score_bmax, score_t, score_rows).
 TILE_ROWS = 128
 TILE_COLS = 64
+# column chunks the tensor-core body (csrc/score_wgmma.cuh) is built for
+# (its `dispatch_chunk`): score_topw, score_tilemax and score_parity run P
+# columns as chunks of one of these widths. The widest is 128, not wgmma's
+# 256: chunks of 192 and 256 columns need more registers than two blocks
+# an SM leave, and at one block an SM they took longer per column than
+# chunks of 128 at two (timed on the card).
+WGMMA_CHUNKS = (8, 16, 32, 64, 104, 128)
+# samples per stage of the tensor-core body's ring (csrc/score_wgmma.cuh KC)
+WGMMA_KC = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -116,8 +127,9 @@ def library() -> KernelLib:
     lib = ctypes.CDLL(path)
     lib.kgt_score_topw.restype = _I
     lib.kgt_score_topw.argtypes = [
-        _P, _P, _P, _P, _P,            # packed, popcnt, y, ysum, thresh
-        _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
+        _P, _P, _P, _P, _P,            # packed, popcnt, b, ysum, thresh
+        _LL, _I, _I,                   # n_rows, w32, p
+        _I, _I, _I, _F, _F,            # nc, n_cc, planes, n, min_count
         _I, _I,                        # cand_w, sort_cap
         _P, _P, _P,                    # tile_v, tile_g, tile_cnt
         _P, _P, _P,                    # out_v, out_g, out_ok
@@ -130,8 +142,9 @@ def library() -> KernelLib:
         _P]                            # stream
     lib.kgt_score_tilemax.restype = _I
     lib.kgt_score_tilemax.argtypes = [
-        _P, _P, _P, _P, _P,            # packed, popcnt, y, ysum, thresh
-        _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
+        _P, _P, _P, _P, _P,            # packed, popcnt, b, ysum, thresh
+        _LL, _I, _I,                   # n_rows, w32, p
+        _I, _I, _I, _F, _F,            # nc, n_cc, planes, n, min_count
         _P, _P, _P, _P, _P, _P,        # tmax, targ, tmax2, targ2, tmax3, targ3
         _P, _P, _P,                    # n2, n3, cnt
         _P]                            # stream
@@ -155,8 +168,9 @@ def library() -> KernelLib:
         _P]                            # stream
     lib.kgt_score_parity.restype = _I
     lib.kgt_score_parity.argtypes = [
-        _P, _P, _P, _P, _P,            # packed, popcnt, y, ysum, thresh
-        _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
+        _P, _P, _P, _P, _P,            # packed, popcnt, b, ysum, thresh
+        _LL, _I, _I,                   # n_rows, w32, p
+        _I, _I, _I, _F, _F,            # nc, n_cc, planes, n, min_count
         _I, _I, _I,                    # tile_rows, w, sort_cap
         _P, _P, _P,                    # tile_v, tile_g, tile_cnt
         _P, _P, _P,                    # mrg_v, mrg_g, mrg_cnt

@@ -16,7 +16,12 @@ Precision is explicit and never inherited from torch's global flags:
   "highest" — f32 products, f32 sums;
   "default" — y rounded to bf16, times the exact 0/1 bits, f32 sums (what
               kmersgwas_tpu/ops/score.py:88-106 documents for the TPU).
-The kernels share one f32 body: the wrappers round y before the launch.
+The kernels have two bodies. The scan step's per-batch kernels (K1
+score_topw, K3 score_tilemax, and K8 score_parity through K1's tile launch)
+run on the tensor cores (csrc/score_wgmma.cuh): y goes in as bf16 planes
+(`bf16_planes`: one at "default", three summing to y at "highest") in the
+kernel's layout (`wgmma_operand`). K2, K4 and K5 keep the f32 FMA body
+(csrc/score_common.cuh), with y rounded by `gemm_operand` before the launch.
 
 Each kernel wrapper sends a CPU tensor to the plain version and a CUDA
 tensor to the kernel; there is no other route and no fallback. Each keeps
@@ -58,6 +63,63 @@ def gemm_operand(y_padded: torch.Tensor, precision: str) -> torch.Tensor:
         return y_padded.to(torch.bfloat16).to(torch.float32)
     raise ValueError(f"precision must be one of {PRECISIONS}, "
                      f"got {precision!r}")
+
+
+def bf16_planes(y_padded: torch.Tensor, precision: str) -> torch.Tensor:
+    """The y of the tensor-core kernels as bf16 planes, held in f32 (each
+    plane is exact in bf16): (1, N, P) bf16(y) at "default"; (3, N, P) at
+    "highest", hi = bf16(y), mid = bf16(y - hi), lo = bf16(y - hi - mid).
+    Each residual is exact in f32 and the last has at most 8 significant
+    bits, so hi + mid + lo == y exactly (in real arithmetic; an f32 sum of
+    the three can round)."""
+    if precision == "default":
+        return gemm_operand(y_padded, precision)[None]
+    if precision != "highest":
+        gemm_operand(y_padded, precision)               # raises
+    hi = y_padded.to(torch.bfloat16).to(torch.float32)
+    r = y_padded - hi
+    mid = r.to(torch.bfloat16).to(torch.float32)
+    lo = (r - mid).to(torch.bfloat16).to(torch.float32)
+    return torch.stack([hi, mid, lo])
+
+
+def column_chunks(p: int) -> tuple[int, int]:
+    """(chunk width nc, number of chunks n_cc) of the tensor-core kernels
+    for p columns: p padded to a multiple of 8, cut into the fewest chunks
+    of at most the widest of _cuda.WGMMA_CHUNKS (128), each the smallest
+    width there that holds an equal share (P=101 -> one chunk of 104;
+    P=1013 -> eight of 128)."""
+    p8 = -(-p // 8) * 8
+    n_cc = -(-p8 // _cuda.WGMMA_CHUNKS[-1])
+    share = -(-p8 // n_cc)
+    return next(c for c in _cuda.WGMMA_CHUNKS if c >= share), n_cc
+
+
+def wgmma_operand(y_padded: torch.Tensor, precision: str,
+                  nc: int) -> torch.Tensor:
+    """The B operand of the tensor-core kernels (csrc/score_wgmma.cuh) for
+    (N_pad, P) phenotypes: the bf16 planes of `bf16_planes`, columns
+    zero-padded to n_cc * nc, laid out as (n_cc, N_pad / 64, planes, nc / 8,
+    8, 8, 8): per column chunk and 64-sample ring stage one contiguous block
+    per plane of 8x8 core matrices (8 columns x 8 samples, samples
+    contiguous), the 8 sample-blocks of a column block adjacent (128 bytes
+    apart) and column blocks 1024 bytes apart. Element (column chunk cc,
+    stage kc, plane l, column block nb, sample block kb, column n8, sample
+    k8) is plane l's y[64 kc + 8 kb + k8][cc nc + 8 nb + n8]."""
+    n_pad, p = y_padded.shape
+    kc = _cuda.WGMMA_KC
+    if n_pad % kc or nc % 8:
+        raise ValueError(f"N_pad ({n_pad}) must be a multiple of {kc} and "
+                         f"the chunk ({nc}) of 8")
+    planes = bf16_planes(y_padded, precision)
+    n_cc = -(-p // nc)
+    y = torch.zeros((planes.shape[0], n_pad, n_cc * nc), dtype=torch.float32,
+                    device=y_padded.device)
+    y[:, :, :p] = planes
+    # (plane, stage, kb, k8, chunk, nb, n8) -> (chunk, stage, plane, nb, kb,
+    # n8, k8)
+    y = y.view(planes.shape[0], n_pad // kc, kc // 8, 8, n_cc, nc // 8, 8)
+    return y.permute(4, 1, 0, 5, 2, 6, 3).to(torch.bfloat16).contiguous()
 
 
 def _epilogue(yigi, n1, y_sum, n_used: int, min_count: int):
@@ -237,33 +299,72 @@ def tilemax_plain(packed, popcnt, y_padded, y_sum, thresh, *, n_used: int,
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _kernel_inputs(packed, popcnt, y_padded, y_sum, precision):
-    """Validate a kernel call's inputs; -> (rows, w32, p, p_pad, y, ysum)
-    with y/ysum zero-padded to the kernel's column chunk."""
+def _check_batch(packed, popcnt, y_padded, y_sum):
+    """Validate a kernel call's batch; -> (rows, w32, p)."""
     dev = packed.device
     if packed.dtype != torch.int32 or packed.dim() != 2 \
             or not packed.is_contiguous():
         raise ValueError("packed must be a contiguous (R, W32) int32 tensor")
     rows, w32 = packed.shape
+    if y_padded.dim() != 2:
+        raise ValueError("y_padded must be a (N_pad, P) tensor")
     n_pad, p = y_padded.shape
-    if rows % _cuda.TILE_ROWS or rows >= 1 << 31:
-        raise ValueError(f"rows ({rows}) must be a multiple of "
+    if rows % _cuda.TILE_ROWS or not 0 < rows < 1 << 31:
+        raise ValueError(f"rows ({rows}) must be a positive multiple of "
                          f"{_cuda.TILE_ROWS} and < 2^31")
-    if n_pad != w32 * 32 or w32 % 4 or w32 > 384:
+    if n_pad != w32 * 32 or w32 % 4 or not 0 < w32 <= 384:
         raise ValueError(f"y_padded rows ({n_pad}) must be 32*W32 with "
-                         f"W32 ({w32}) a multiple of 4 and <= 384")
+                         f"W32 ({w32}) a multiple of 4 in [4, 384]")
+    if p < 1:
+        raise ValueError("y_padded must hold at least one column")
     for name, t in (("popcnt", popcnt), ("y_padded", y_padded),
                     ("y_sum", y_sum)):
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {dev}")
     if popcnt.shape != (rows,) or not popcnt.is_contiguous():
         raise ValueError("popcnt must be a contiguous (R,) tensor")
+    if y_sum.shape != (p,):
+        raise ValueError(f"y_sum must be a ({p},) tensor")
+    return rows, w32, p
+
+
+def _kernel_inputs(packed, popcnt, y_padded, y_sum, precision):
+    """Validate an FMA-body kernel call's inputs (score_bmax, score_t,
+    score_rows); -> (rows, w32, p, p_pad, y, ysum) with y/ysum zero-padded
+    to the kernel's column chunk."""
+    rows, w32, p = _check_batch(packed, popcnt, y_padded, y_sum)
+    dev = packed.device
     p_pad = -(-p // _cuda.TILE_COLS) * _cuda.TILE_COLS
-    y = torch.zeros((n_pad, p_pad), dtype=torch.float32, device=dev)
+    y = torch.zeros((w32 * 32, p_pad), dtype=torch.float32, device=dev)
     y[:, :p] = gemm_operand(y_padded, precision)
     ys = torch.zeros(p_pad, dtype=torch.float32, device=dev)
     ys[:p] = y_sum
     return rows, w32, p, p_pad, y, ys
+
+
+def _wgmma_inputs(packed, popcnt, y_padded, y_sum, thresh, precision):
+    """Validate a tensor-core kernel call's inputs (score_topw,
+    score_tilemax, score_parity); -> (rows, w32, p, b, ysum, thresh) with b
+    the `wgmma_operand` of the call's column chunk and ysum / thresh padded
+    to its n_cc * nc columns (0 and +inf)."""
+    rows, w32, p = _check_batch(packed, popcnt, y_padded, y_sum)
+    dev = packed.device
+    if thresh.device != dev or thresh.dtype != torch.float32 \
+            or thresh.shape != (p,):
+        raise ValueError(f"thresh must be a ({p},) float32 tensor on {dev}")
+    nc, _ = column_chunks(p)
+    b = wgmma_operand(y_padded, precision, nc)
+    p_tot = b.shape[0] * nc
+    ys = torch.zeros(p_tot, dtype=torch.float32, device=dev)
+    ys[:p] = y_sum
+    th = torch.full((p_tot,), float("inf"), dtype=torch.float32, device=dev)
+    th[:p] = thresh
+    return rows, w32, p, b, ys, th
+
+
+def _chunk_args(b) -> tuple[int, int, int]:
+    """(nc, n_cc, planes) of a `wgmma_operand`."""
+    return b.shape[3] * 8, b.shape[0], b.shape[2]
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -338,7 +439,9 @@ def score_batch_t_topw(packed, popcnt, y_padded, y_sum, thresh, *,
     by (value desc, lane asc), cand_g (P, W) int32 batch lanes, ok (P,)
     bool). ok[c] means no `tile_rows`-row tile holds more than 3 lanes
     scoring > thresh[c]; the caller adds the W-th <= thresh check. On the
-    card tile_rows must be the kernel's TILE_ROWS."""
+    card (tensor-core body, csrc/score_wgmma.cuh) tile_rows must be the
+    kernel's TILE_ROWS, 1 <= cand_w <= 1024, and the shapes those
+    `_wgmma_inputs` takes."""
     if packed.device.type == "cpu":
         return topw_plain(packed, popcnt, y_padded, y_sum, thresh,
                           n_used=n_used, min_count=min_count,
@@ -350,14 +453,9 @@ def score_batch_t_topw(packed, popcnt, y_padded, y_sum, thresh, *,
                          f"{_cuda.TILE_ROWS}-row tile, got {tile_rows}")
     if not 1 <= cand_w <= 1024:
         raise ValueError(f"cand_w must be in [1, 1024], got {cand_w}")
-    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
-                                                y_sum, precision)
+    rows, w32, p, b, ys, th = _wgmma_inputs(packed, popcnt, y_padded, y_sum,
+                                            thresh, precision)
     dev = packed.device
-    if thresh.shape != (p,) or thresh.dtype != torch.float32 \
-            or thresh.device != dev:
-        raise ValueError("thresh must be a (P,) float32 tensor on the card")
-    th = torch.full((p_pad,), float("inf"), dtype=torch.float32, device=dev)
-    th[:p] = thresh
     n_tiles = rows // _cuda.TILE_ROWS
     tile_v = torch.empty((p, 3 * n_tiles), dtype=torch.float32, device=dev)
     tile_g = torch.empty((p, 3 * n_tiles), dtype=torch.int32, device=dev)
@@ -369,8 +467,8 @@ def score_batch_t_topw(packed, popcnt, y_padded, y_sum, thresh, *,
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.lib.kgt_score_topw(
-            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
-            ys.data_ptr(), th.data_ptr(), rows, w32, p, p_pad,
+            packed.data_ptr(), popcnt.data_ptr(), b.data_ptr(),
+            ys.data_ptr(), th.data_ptr(), rows, w32, p, *_chunk_args(b),
             float(n_used), float(min_count), cand_w, sort_cap,
             tile_v.data_ptr(), tile_g.data_ptr(), tile_cnt.data_ptr(),
             out_v.data_ptr(), out_g.data_ptr(), out_ok.data_ptr(),
@@ -390,25 +488,21 @@ def score_batch_t_parity(packed, popcnt, y_padded, y_sum, thresh, *,
     (csrc/score_parity.cu; replaces tools/prof_r5_epi.py `_parity_kernel`):
     -> (va, ga, vb, gb, ok) as parity_plain defines them. On the card
     tile_rows must be a multiple of the kernel's TILE_ROWS dividing the
-    batch rows, and 1 <= w <= 1024."""
+    batch rows, 1 <= w <= 1024, and the shapes `_wgmma_inputs` takes (the
+    kernel runs K1's tile launch)."""
     if packed.device.type == "cpu":
         return parity_plain(packed, popcnt, y_padded, y_sum, thresh,
                             n_used=n_used, min_count=min_count,
                             tile_rows=tile_rows, w=w, precision=precision)
     _require_cuda(packed)
-    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
-                                                y_sum, precision)
+    rows, w32, p, b, ys, th = _wgmma_inputs(packed, popcnt, y_padded, y_sum,
+                                            thresh, precision)
     if tile_rows <= 0 or tile_rows % _cuda.TILE_ROWS or rows % tile_rows:
         raise ValueError(f"tile_rows ({tile_rows}) must be a multiple of "
                          f"{_cuda.TILE_ROWS} dividing the rows ({rows})")
     if not 1 <= w <= 1024:
         raise ValueError(f"w must be in [1, 1024], got {w}")
     dev = packed.device
-    if thresh.shape != (p,) or thresh.dtype != torch.float32 \
-            or thresh.device != dev:
-        raise ValueError("thresh must be a (P,) float32 tensor on the card")
-    th = torch.full((p_pad,), float("inf"), dtype=torch.float32, device=dev)
-    th[:p] = thresh
     n_tiles = rows // _cuda.TILE_ROWS
     n_probe = rows // tile_rows
     tile_v = torch.empty((p, 3 * n_tiles), dtype=torch.float32, device=dev)
@@ -427,8 +521,8 @@ def score_batch_t_parity(packed, popcnt, y_padded, y_sum, thresh, *,
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.lib.kgt_score_parity(
-            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
-            ys.data_ptr(), th.data_ptr(), rows, w32, p, p_pad,
+            packed.data_ptr(), popcnt.data_ptr(), b.data_ptr(),
+            ys.data_ptr(), th.data_ptr(), rows, w32, p, *_chunk_args(b),
             float(n_used), float(min_count), tile_rows, w, sort_cap,
             tile_v.data_ptr(), tile_g.data_ptr(), tile_cnt.data_ptr(),
             mrg_v.data_ptr(), mrg_g.data_ptr(), mrg_cnt.data_ptr(),
@@ -482,7 +576,9 @@ def score_batch_t_tilemax(packed, popcnt, y_padded, y_sum, thresh, *,
     """Compact scan kernel (csrc/score_tilemax.cu; replaces kmersgwas_tpu
     score_batch_t_pallas_tilemax): -> the nine (P, R/tile_rows) planes
     (tmax, targ, tmax2, targ2, tmax3, targ3, n2, n3, cnt) defined in
-    tilemax_plain. On the card tile_rows must be the kernel's TILE_ROWS."""
+    tilemax_plain. On the card (tensor-core body, csrc/score_wgmma.cuh)
+    tile_rows must be the kernel's TILE_ROWS, and the shapes those
+    `_wgmma_inputs` takes."""
     if packed.device.type == "cpu":
         return tilemax_plain(packed, popcnt, y_padded, y_sum, thresh,
                              n_used=n_used, min_count=min_count,
@@ -491,14 +587,9 @@ def score_batch_t_tilemax(packed, popcnt, y_padded, y_sum, thresh, *,
     if tile_rows != _cuda.TILE_ROWS:
         raise ValueError(f"the score_tilemax kernel reduces "
                          f"{_cuda.TILE_ROWS}-row tiles, got {tile_rows}")
-    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
-                                                y_sum, precision)
+    rows, w32, p, b, ys, th = _wgmma_inputs(packed, popcnt, y_padded, y_sum,
+                                            thresh, precision)
     dev = packed.device
-    if thresh.shape != (p,) or thresh.dtype != torch.float32 \
-            or thresh.device != dev:
-        raise ValueError("thresh must be a (P,) float32 tensor on the card")
-    th = torch.full((p_pad,), float("inf"), dtype=torch.float32, device=dev)
-    th[:p] = thresh
     n_tiles = rows // _cuda.TILE_ROWS
     planes = [torch.empty((p, n_tiles), dtype=dt, device=dev)
               for dt in (torch.float32, torch.int32) * 3
@@ -506,8 +597,8 @@ def score_batch_t_tilemax(packed, popcnt, y_padded, y_sum, thresh, *,
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.lib.kgt_score_tilemax(
-            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
-            ys.data_ptr(), th.data_ptr(), rows, w32, p, p_pad,
+            packed.data_ptr(), popcnt.data_ptr(), b.data_ptr(),
+            ys.data_ptr(), th.data_ptr(), rows, w32, p, *_chunk_args(b),
             float(n_used), float(min_count),
             *(t.data_ptr() for t in planes),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -88,6 +88,66 @@ def test_tilemax_kernel_equals_plain(cuda, rows, n, p, precision):
     assert score.score_batch_t_tilemax.launches == launches + 3
 
 
+@pytest.mark.parametrize("p", [1, 3, 8, 101, 104, 128, 129, 256, 509, 1013])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_tensor_core_kernels_equal_plain(cuda, p, precision):
+    """K1, K3 and K8 (the tensor-core body, csrc/score_wgmma.cuh) against
+    their plain versions bit for bit on dyadic phenotypes, with padding
+    rows and runs of equal rows inside tiles, at every column chunk the
+    body is built for (P = 1 to 1013: one chunk of 8 to eight of 128)."""
+    rows, n = 1024, 300
+    packed, pc, yp, ysum = batch(rows, n, p, 7 * p, cuda)
+    packed.view(-1, 4, packed.shape[1])[: rows // 8, 1:] = \
+        packed.view(-1, 4, packed.shape[1])[: rows // 8, :1]
+    pc = bitplanes.popcount_rows(packed)
+    kw = dict(n_used=n, min_count=5, precision=precision)
+    sc = score.scores_t_plain(packed, pc, yp, ysum, **kw)
+    q = torch.topk(sc, 16, dim=1).values[:, -1].contiguous()
+    launches = (score.score_batch_t_topw.launches,
+                score.score_batch_t_tilemax.launches,
+                score.score_batch_t_parity.launches)
+    for th in (torch.full((p,), float("-inf"), device=cuda), q,
+               torch.full((p,), float("inf"), device=cuda)):
+        args = (packed, pc, yp, ysum, th)
+        for got, want in (
+                (score.score_batch_t_topw(*args, tile_rows=128, cand_w=64,
+                                          **kw),
+                 score.topw_plain(*args, tile_rows=128, cand_w=64, **kw)),
+                (score.score_batch_t_tilemax(*args, tile_rows=128, **kw),
+                 score.tilemax_plain(*args, tile_rows=128, **kw)),
+                (score.score_batch_t_parity(*args, tile_rows=256, w=32,
+                                            **kw),
+                 score.parity_plain(*args, tile_rows=256, w=32, **kw))):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    tm = score.tilemax_plain(packed, pc, yp, ysum, q, tile_rows=128, **kw)
+    assert bool((tm[6] > 1).any()) and bool((tm[7] > 1).any())
+    assert (score.score_batch_t_topw.launches,
+            score.score_batch_t_tilemax.launches,
+            score.score_batch_t_parity.launches) == tuple(
+                x + 3 for x in launches)
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_topw_lists_equal_the_fma_body_selection(cuda, precision):
+    """Across the two bodies: K1's top-W lists (tensor cores) equal the
+    top-W selected from K2's scores (the f32 FMA body of score_common.cuh)
+    for the same dyadic batch."""
+    packed, pc, yp, ysum = batch(8192, 1008, 101, 11, cuda)
+    kw = dict(n_used=1008, min_count=5, precision=precision)
+    ks, _ = score.score_batch_t_bmax(packed, pc, yp, ysum, **kw)
+    q = torch.topk(ks, 16, dim=1).values[:, -1].contiguous()
+    for th in (q, torch.full((101,), float("-inf"), device=cuda)):
+        kv, kg, kok = score.score_batch_t_topw(packed, pc, yp, ysum, th,
+                                               tile_rows=128, cand_w=256,
+                                               **kw)
+        v3, lanes, ok = score._tile_top3(ks, th, 128)
+        v, g = score._select(v3.reshape(101, -1), lanes.reshape(101, -1),
+                             256)
+        assert torch.equal(kv, v) and torch.equal(kg, g)
+        assert torch.equal(kok, ok)
+
+
 @pytest.mark.parametrize("rows,n,p", [(1024, 100, 3), (4096, 1008, 101)])
 @pytest.mark.parametrize("precision", ["default", "highest"])
 def test_score_t_and_rows_kernels_equal_plain(cuda, rows, n, p, precision):

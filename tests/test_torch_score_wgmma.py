@@ -1,0 +1,345 @@
+"""The tensor-core body of the scan step's score kernels (K1 score_topw, K3
+score_tilemax, K8 score_parity; kmersgwas_tpu_torch/csrc/score_wgmma.cuh)
+on the CPU: its operand preparation, a torch emulation of its arithmetic,
+and the wrappers' refusals. The kernels themselves run only on the card
+(tests/test_torch_gpu.py).
+
+The emulation reads the B operand the way the kernel's descriptors do
+(8x8 core matrices, 128 bytes apart along the samples, 1024 along the
+columns, 256 bytes per k16 step, one block per plane and 64-sample stage)
+and adds, per 16-sample k step and plane, the f32 product of the 0/1 bits
+and the bf16 plane to an f32 accumulator, as the tensor cores do. Dyadic
+phenotypes (multiples of 1/8) keep every partial sum exact, so it must equal
+the plain versions and the JAX package bit for bit; Gaussian phenotypes at
+"highest" are held to RTOL of the score plus RTOL of the column's largest
+score (as tests/test_torch_ops.py holds them).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from kmersgwas_tpu.ops import bitplanes as jbits
+from kmersgwas_tpu.ops import scanstep as jss
+from kmersgwas_tpu.ops import score as jscore
+from kmersgwas_tpu_torch.ops import _cuda, bitplanes, score
+
+RTOL = 1e-5
+
+
+def dyadic(rng, shape):
+    return (np.round(rng.uniform(-8, 8, size=shape) * 8) / 8).astype(
+        np.float32)
+
+
+def problem(seed, rows=256, n=100, p=3, gaussian=False, pad_rows=9,
+            tie_runs=False):
+    """Packed planes (uint32), popcounts and (n_pad, p) phenotypes; the last
+    `pad_rows` rows are padding; tie_runs duplicates rows in runs of 1-4
+    so that a tile's 2nd and 3rd values tie."""
+    rng = np.random.default_rng(seed)
+    n_pad = -(-n // 128) * 128
+    bits = rng.integers(0, 2, size=(rows, n)).astype(np.uint8)
+    if tie_runs:
+        r = 0
+        while r < rows:
+            run = int(rng.integers(1, 5))
+            bits[r:r + run] = bits[r]
+            r += run
+    bits[rows - pad_rows:] = 0
+    padded = np.zeros((rows, n_pad), np.uint8)
+    padded[:, :n] = bits
+    y = (rng.normal(size=(n, p)).astype(np.float32) if gaussian
+         else dyadic(rng, (n, p)))
+    yp, ysum = jscore.prepare_phenotypes(y, n_pad)
+    return dict(packed=jbits.pack_bits_np(padded),
+                pc=bits.sum(1).astype(np.float32), yp=np.array(yp),
+                ysum=np.array(ysum), n=n, p=p)
+
+
+def torch_args(pb):
+    return (bitplanes.as_planes(pb["packed"]), torch.from_numpy(pb["pc"]),
+            torch.from_numpy(pb["yp"]), torch.from_numpy(pb["ysum"]))
+
+
+def jax_args(pb):
+    return (jnp.asarray(pb["packed"]), jnp.asarray(pb["pc"]),
+            jnp.asarray(pb["yp"]), jnp.asarray(pb["ysum"]))
+
+
+def emulate_scores_t(packed, popcnt, y_padded, y_sum, *, n_used, min_count,
+                     precision):
+    """(P, R) scores as the kernel computes them, from the operand its
+    wrapper builds (`_wgmma_inputs`)."""
+    thresh = torch.zeros_like(y_sum)
+    rows, _, p, b, ys, _ = score._wgmma_inputs(packed, popcnt, y_padded,
+                                               y_sum, thresh, precision)
+    nc, n_cc, planes = score._chunk_args(b)
+    n_kc = b.shape[1]
+    flat = b.reshape(n_cc, n_kc, -1).to(torch.float32)
+    bits = bitplanes.unpack_bits(packed, torch.float32)       # (R, N_pad)
+    # element offsets (bf16 units) of a k16 step's (nb, kb, n8, k8): LBO
+    # 128 bytes, SBO 1024 bytes, 16 bytes per column of a core matrix
+    nb = torch.arange(nc // 8)[:, None, None, None]
+    kb = torch.arange(2)[None, :, None, None]
+    n8 = torch.arange(8)[None, None, :, None]
+    k8 = torch.arange(8)[None, None, None, :]
+    off = kb * 64 + nb * 512 + n8 * 8 + k8
+    yigi = torch.empty((n_cc * nc, rows), dtype=torch.float32)
+    for cc in range(n_cc):
+        acc = torch.zeros((rows, nc), dtype=torch.float32)
+        for kc in range(n_kc):
+            for ks in range(4):
+                a = bits[:, 64 * kc + 16 * ks:64 * kc + 16 * ks + 16]
+                for pl in range(planes):
+                    blk = flat[cc, kc, pl * 64 * nc + ks * 128 + off]
+                    acc = acc + a @ blk.permute(1, 3, 0, 2).reshape(16, nc)
+        yigi[cc * nc:(cc + 1) * nc] = acc.T
+    return score.score_epilogue_t(yigi, popcnt, ys, n_used,
+                                  min_count)[:p].contiguous()
+
+
+def emulate_topw(args, thresh, *, tile_rows, cand_w, **kw):
+    sc = emulate_scores_t(*args, **kw)
+    v3, lanes, ok = score._tile_top3(sc, thresh, tile_rows)
+    p = sc.shape[0]
+    return (*score._select(v3.reshape(p, -1), lanes.reshape(p, -1), cand_w),
+            ok)
+
+
+def assert_close(got, want, scale):
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    d = torch.where(fin, (got - want).abs(), 0.0)
+    assert bool((d <= RTOL * (torch.where(fin, want.abs(), 0.0)
+                              + scale)).all()), float(d.max())
+
+
+# ------------------------------------------------------ operand preparation
+
+def test_default_plane_is_bf16_of_y():
+    y = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(256, 7)).astype(np.float32))
+    planes = score.bf16_planes(y, "default")
+    assert planes.shape == (1, 256, 7)
+    assert torch.equal(planes[0], y.to(torch.bfloat16).to(torch.float32))
+    with pytest.raises(ValueError, match="precision"):
+        score.bf16_planes(y, "tf32")
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e30, 1e-30])
+def test_highest_planes_sum_to_y_exactly(scale):
+    """hi + mid + lo == y exactly (summed in f64, where no addition can
+    round) wherever lo's bits are normal, |y| >= 2^-110 (lo carries y's
+    bits 17-24, 2^-16 below y, and bf16's normal range ends at 2^-126, as
+    f32's does); below that lo is a bf16 subnormal, spaced 2^-133, and the
+    sum is within that spacing of y. Every plane is exact in bf16 and each
+    is at most half an ulp of the one before; summed in f32 as the tensor
+    core's adder does, the three give y back within one ulp of y (the two
+    f32 additions can round once where hi + mid needs a 25th bit)."""
+    rng = np.random.default_rng(2)
+    y = (rng.normal(size=(512, 9)) * scale).astype(np.float32)
+    y[0, :3] = [0.0, 1.0, -3.0]                       # exact in bf16
+    yt = torch.from_numpy(y)
+    hi, mid, lo = score.bf16_planes(yt, "highest")
+    for plane in (hi, mid, lo):
+        assert torch.equal(plane, plane.to(torch.bfloat16).to(torch.float32))
+    s64 = hi.double().numpy() + mid.double().numpy() + lo.double().numpy()
+    normal = np.abs(y) >= 2.0 ** -110
+    np.testing.assert_array_equal(s64[normal], y[normal].astype(np.float64))
+    assert (np.abs(s64 - y) <= 2.0 ** -133).all()
+    assert normal.mean() > 0.99
+    assert (mid.abs() <= hi.abs() * 2.0 ** -8).all()
+    assert (lo.abs() <= mid.abs() * 2.0 ** -8).all()
+    assert torch.equal(mid[0, :3], torch.zeros(3))
+    s32 = ((hi + mid) + lo).numpy()
+    ulp = np.spacing(np.abs(y))
+    assert (np.abs(s32.astype(np.float64) - y) <= ulp).all()
+
+
+@pytest.mark.parametrize("p,nc,n_cc", [(1, 8, 1), (8, 8, 1), (101, 104, 1),
+                                       (104, 104, 1), (256, 128, 2),
+                                       (257, 104, 3), (1013, 128, 8)])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_wgmma_operand_layout(p, nc, n_cc, precision):
+    """The chunk choice, and the operand decoded from its layout: each
+    element is its plane's y, padding columns (past P) and padding samples
+    (past N, zero in y_padded) are 0."""
+    assert score.column_chunks(p) == (nc, n_cc)
+    assert nc in _cuda.WGMMA_CHUNKS and n_cc * nc >= p and nc <= 128
+    rng = np.random.default_rng(p)
+    n, n_pad = 100, 128
+    yp, _ = score.prepare_phenotypes(rng.normal(size=(n, p)), n_pad, "cpu")
+    b = score.wgmma_operand(yp, precision, nc)
+    planes = score.bf16_planes(yp, precision)
+    n_pl = planes.shape[0]
+    assert b.dtype == torch.bfloat16 and b.is_contiguous()
+    assert b.shape == (n_cc, n_pad // 64, n_pl, nc // 8, 8, 8, 8)
+    # (chunk, stage, plane, nb, kb, n8, k8) -> (plane, sample, column)
+    dec = b.float().permute(2, 1, 4, 6, 0, 3, 5).reshape(n_pl, n_pad,
+                                                         n_cc * nc)
+    assert torch.equal(dec[:, :, :p], planes)
+    assert not dec[:, :, p:].any() and not dec[:, n:, :].any()
+
+
+# ------------------------------------------------ the kernel's arithmetic
+
+@pytest.mark.parametrize("p", [1, 3, 8, 101, 257])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_emulated_topw_equals_plain_and_jax(p, precision):
+    pb = problem(10 + p, p=p)
+    args = torch_args(pb)
+    kw = dict(n_used=pb["n"], min_count=2, precision=precision)
+    want_sc = score.scores_t_plain(*args, **kw)
+    q = torch.quantile(want_sc[:, :-9], 0.95, dim=1).contiguous()
+    for th in (torch.full((p,), float("-inf")), q):
+        got = emulate_topw(args, th, tile_rows=128, cand_w=64, **kw)
+        want = score.topw_plain(*args, th, tile_rows=128, cand_w=64, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        v_x, _, _ = jss._topw_xla(*jax_args(pb), jnp.asarray(th.numpy()),
+                                  pb["n"], 2, 128, 64, precision=precision)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(v_x))
+
+
+@pytest.mark.parametrize("p", [3, 101])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_emulated_tilemax_equals_plain_and_jax(p, precision):
+    """K3's nine planes from the emulated scores, on rows with runs of
+    equal rows: bit-equal to tilemax_plain, and to the JAX package's XLA
+    mirror where its sum-encoded lanes are meaningful."""
+    pb = problem(20 + p, p=p, tie_runs=True)
+    args = torch_args(pb)
+    kw = dict(n_used=pb["n"], min_count=2, precision=precision)
+    sc = emulate_scores_t(*args, **kw)
+    th = torch.quantile(sc[:, :-9], 0.9, dim=1).contiguous()
+    got = score.tilemax_from_scores(sc, th, 64)
+    want = score.tilemax_plain(*args, th, tile_rows=64, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool((got[6] > 1).any()) and bool((got[7] > 1).any())
+    ref = [np.asarray(x) for x in jss._tilemax(
+        *jax_args(pb), jnp.asarray(th.numpy()), pb["n"], 2, "xla", 64,
+        precision=precision)]
+    for i in (0, 1, 2, 6, 8):                 # tmax, targ, tmax2, n2, cnt
+        np.testing.assert_array_equal(got[i].numpy(), ref[i])
+    one2 = ref[6] == 1
+    for i in (3, 4, 7):                       # targ2, tmax3, n3
+        np.testing.assert_array_equal(got[i].numpy()[one2], ref[i][one2])
+
+
+def test_emulated_parity_lists_equal_plain():
+    """K8 runs K1's tile launch: its lists from the emulated scores equal
+    parity_plain's."""
+    pb = problem(31, rows=1024, p=5)
+    args = torch_args(pb)
+    kw = dict(n_used=pb["n"], min_count=2, precision="default")
+    sc = emulate_scores_t(*args, **kw)
+    th = torch.quantile(sc[:, :-9], 0.99, dim=1).contiguous()
+    v3, lanes, ok = score._tile_top3(sc, th, 256)
+    va, ga = score._select(v3[:, 0::2].reshape(5, -1),
+                           lanes[:, 0::2].reshape(5, -1), 16)
+    vb, gb = score._select(v3[:, 1::2].reshape(5, -1),
+                           lanes[:, 1::2].reshape(5, -1), 16)
+    want = score.parity_plain(*args, th, tile_rows=256, w=16, **kw)
+    for a, b in zip((va, ga, vb, gb, ok), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p", [3, 101])
+def test_emulated_highest_gaussian_within_rtol(p):
+    """Three bf16 planes summed per k step stay within RTOL of the plain
+    f32 scores and of the JAX package's on Gaussian phenotypes; "default"
+    on the same inputs is off by far more (the bf16 rounding of y)."""
+    pb = problem(40 + p, p=p, gaussian=True)
+    args = torch_args(pb)
+    kw = dict(n_used=pb["n"], min_count=2)
+    got = emulate_scores_t(*args, precision="highest", **kw)
+    want = score.scores_t_plain(*args, precision="highest", **kw)
+    scale = torch.where(torch.isfinite(want), want.abs(), 0.0).amax(
+        dim=1, keepdim=True)
+    assert_close(got, want, scale)
+    jx = torch.from_numpy(np.array(jss._scores_t_xla(
+        *jax_args(pb), pb["n"], 2)))
+    assert_close(got, jx, scale)
+    dflt = emulate_scores_t(*args, precision="default", **kw)
+    fin = torch.isfinite(want)
+    assert float((dflt - want)[fin].abs().max()) > \
+        100 * float((got - want)[fin].abs().max())
+
+
+# ------------------------------------------------------------ refusals
+
+def good_inputs(rows=256, n_pad=128, p=3):
+    pb = problem(5, rows=rows, n=min(100, n_pad), p=p)
+    return list(torch_args(pb)) + [torch.zeros(p)]
+
+
+@pytest.mark.parametrize("case,match", [
+    ("rows", "multiple of 128"),
+    ("w32_odd", "multiple of 4"),
+    ("w32_big", "multiple of 4"),
+    ("n_pad", "32\\*W32"),
+    ("no_columns", "at least one column"),
+    ("thresh", "thresh must be"),
+    ("ysum_shape", "y_sum must be"),
+    ("dtype", "float32"),
+    ("packed", "contiguous \\(R, W32\\) int32"),
+])
+def test_wgmma_inputs_refuse_bad_shapes(case, match):
+    packed, pc, yp, ysum, th = good_inputs()
+    if case == "rows":
+        packed, pc = packed[:200].contiguous(), pc[:200].contiguous()
+    elif case == "w32_odd":                   # N_pad 64: W32 = 2
+        packed, yp = packed[:, :2].contiguous(), yp[:64]
+    elif case == "w32_big":                   # W32 = 388 > 384
+        packed = torch.zeros((128, 388), dtype=torch.int32)
+        pc = torch.ones(128)
+        yp = torch.zeros((388 * 32, 3))
+    elif case == "n_pad":
+        yp = torch.zeros((256, 3))
+    elif case == "no_columns":
+        yp, ysum, th = yp[:, :0], ysum[:0], th[:0]
+    elif case == "thresh":
+        th = th.double()
+    elif case == "ysum_shape":
+        ysum = ysum[:2]
+    elif case == "dtype":
+        pc = pc.double()
+    elif case == "packed":
+        packed = packed.t()
+    with pytest.raises(ValueError, match=match):
+        score._wgmma_inputs(packed, pc, yp, ysum, th, "default")
+
+
+def test_wgmma_inputs_pad_the_chunk():
+    packed, pc, yp, ysum, th = good_inputs(p=101)
+    rows, w32, p, b, ys, tp = score._wgmma_inputs(packed, pc, yp, ysum,
+                                                  th + 1.0, "highest")
+    assert (rows, w32, p) == (256, 4, 101)
+    assert score._chunk_args(b) == (104, 1, 3)
+    assert torch.equal(ys[:101], ysum) and not ys[101:].any()
+    assert torch.equal(tp[:101], th + 1.0)
+    assert bool((tp[101:] == float("inf")).all())
+
+
+def test_tensor_core_wrappers_have_no_cpu_kernel_path():
+    """CPU tensors take the plain versions; tensors on any other non-CUDA
+    device are refused: there is no route around the kernel."""
+    pb = problem(6, p=3)
+    args = torch_args(pb)
+    th = torch.full((3,), 5.0)
+    kw = dict(n_used=pb["n"], min_count=2)
+    planes = score.score_batch_t_tilemax(*args, th, tile_rows=64, **kw)
+    for a, b in zip(planes, score.tilemax_plain(*args, th, tile_rows=64,
+                                                **kw)):
+        assert torch.equal(a, b)
+    got = score.score_batch_t_parity(*args, th, tile_rows=128, w=8, **kw)
+    for a, b in zip(got, score.parity_plain(*args, th, tile_rows=128, w=8,
+                                            **kw)):
+        assert torch.equal(a, b)
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="no kernel"):
+        score.score_batch_t_tilemax(*meta, th.to("meta"), tile_rows=128, **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        score.score_batch_t_parity(*meta, th.to("meta"), tile_rows=128, **kw)
