@@ -9,27 +9,36 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. environment: the card's name and power limit, CUDA and nvcc versions,
      the kernels' build from csrc/ (one nvcc per source, in parallel);
   2. kernels against their plain PyTorch versions on the card, at small
-     shapes (P up to 1013, eight column chunks of K1's and K3's tensor-core
-     body) and at one flagship batch (R=2,097,152, N=1008, P=101, W=256):
-     K1-K5 bit-equal on dyadic phenotypes, within a stated tolerance on
-     Gaussian ones at precision "highest", with times; K3 (score_tilemax)
-     also on batches with runs of equal rows inside tiles (tied 2nd/3rd
-     values), its tiles' top 3 equal to K1's list on Gaussian ones; K1's
-     tile and select launches timed apart and K3 timed, at both
-     precisions, beside a GEMM-only yardstick (a bf16 torch.matmul of the
-     pre-unpacked bits, which computes no score); K7 (kinship_gram)
-     bit-equal to the plain +-1 Gram at 2^20
-     rows x N=1008, also at a ragged n_rows (2^20 - 37) with a random
-     tail, with times;
+     shapes (P up to 1013, eight column chunks of the tensor-core body) and
+     at one flagship batch (R=2,097,152, N=1008, P=101, W=256): K1-K5
+     bit-equal on dyadic phenotypes, within a stated tolerance on Gaussian
+     ones at precision "highest", with times. K1 (score_topw), K3
+     (score_tilemax), K2 (score_bmax) and K4 (score_t) run on the
+     tensor-core body (csrc/score_wgmma.cuh), K2 and K4 through the score
+     plane's bulk-copy epilogue (csrc/score_plane.cu); K5 (score_rows)
+     runs on the f32 FMA body (csrc/score_common.cuh). K2's scores equal
+     K1's values at K1's lanes at every shape, and on the flagship at both
+     precisions on Gaussian and dyadic phenotypes. K3 also on batches with
+     runs of equal rows inside tiles (tied 2nd/3rd values), its tiles' top
+     3 equal to K1's list on Gaussian ones; K1's tile and select launches,
+     K2's and K4's kernels apart from their operand build (profiler), and
+     K3, at both precisions, beside a GEMM-only yardstick (a bf16
+     torch.matmul of the pre-unpacked bits, which computes no score); K7
+     (kinship_gram) bit-equal to the plain +-1 Gram at 2^20 rows x
+     N=1008, also at a ragged n_rows (2^20 - 37) with a random tail, with
+     times;
   3. the main path, `associate` on the dtable route at its real shape
      (N=1008, P=101, top-10001, 2,000,000-row batches, ~4.2M rows), held
      against a numpy f64 brute force;
   4. the scan step's settled regime at the same shape: device-made 2M-row
      batches through `scan_step_compact` (the append branch engages once
      the threshold settles), held bit for bit against a plain running
-     top-k, with step times and a profiled window of settled steps; 85
-     batches in `cand_w` mode (the single-process scan's step, K1), 245 in
-     `cand_c` mode with the multi-process driver's parameters (K3);
+     top-k, with step times, a profiled window of settled steps and one
+     of 5 fallback steps from the ramp (device time split into K2's
+     kernel, its operand build, top_k_from_bmax, the rest of
+     _flush_merge, the candidate kernel and the rest); 85 batches in
+     `cand_w` mode (the single-process scan's step, K1), 245 in `cand_c`
+     mode with the multi-process driver's parameters (K3);
   5. the CLI, `associate --device cuda` against `--device cpu`: output
      files byte-identical;
   6. the multi-process scan's path, `run_distributed_scan` in one process
@@ -90,6 +99,7 @@ library call's time, null where no single PyTorch call computes the same
 function); the last line is {"ok": true, "device": {...}}. Without CUDA
 the script fails at once.
 """
+import contextlib
 import json
 import math
 import os
@@ -106,9 +116,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOPW_SOURCE = "kmersgwas_tpu_torch/csrc/score_topw.cu"
-BMAX_SOURCE = "kmersgwas_tpu_torch/csrc/score_bmax.cu"
+BMAX_SOURCE = "kmersgwas_tpu_torch/csrc/score_plane.cu"
 TILEMAX_SOURCE = "kmersgwas_tpu_torch/csrc/score_tilemax.cu"
-SCORE_T_SOURCE = "kmersgwas_tpu_torch/csrc/score_t.cu"
+SCORE_T_SOURCE = BMAX_SOURCE
 SCORE_ROWS_SOURCE = "kmersgwas_tpu_torch/csrc/score_rows.cu"
 KINSHIP_SOURCE = "kmersgwas_tpu_torch/csrc/kinship_gram.cu"
 TOPW_REPLACES = "kmersgwas_tpu/ops/score.py:448"
@@ -207,9 +217,14 @@ def phase_env():
     bad = tensor_core_spills(lib.log)
     need(not bad, "the tensor-core kernels spill or serialize their "
          "products:\n" + "\n".join(bad))
-    log("tensor-core kernels (score_topw_tiles, score_tilemax): no spills, "
-        "no serialized products")
+    log(f"tensor-core kernels ({', '.join(TENSOR_CORE_KERNELS)}): no "
+        "spills, no serialized products")
     return card
+
+
+# the kernels built on csrc/score_wgmma.cuh's body: K1's tile launch (also
+# K8's), K3, and K2 / K4 (score_plane_kernel<N8, true / false>)
+TENSOR_CORE_KERNELS = ("score_topw_tiles", "score_tilemax", "score_plane")
 
 
 def tensor_core_spills(ptxas_log):
@@ -221,7 +236,7 @@ def tensor_core_spills(ptxas_log):
             kernel = ln.split("'")[1]
         elif "wgmma" in ln and "serialized" in ln:
             bad.append(ln.strip())
-        elif "score_topw_tiles" in kernel or "score_tilemax" in kernel:
+        elif any(k in kernel for k in TENSOR_CORE_KERNELS):
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m and int(m.group(1)):
                 bad.append(f"{kernel}: {ln.strip()}")
@@ -455,6 +470,8 @@ def check_kernels_at(rows, n, p, w, seed, label, timing=False):
                 need(torch.equal(kv, pv) and torch.equal(kg, pg)
                      and torch.equal(kok, pok),
                      f"{label}: K1 != plain ({prec}, dyadic, th {th_name})")
+            need(k2_equals_k1(ks, kv, kg), f"{label}: K2's scores differ "
+                 f"from K1's values at K1's lanes ({prec}, th {th_name})")
             # ok (with the caller's W-th <= thresh check) is conservative:
             # every lane scoring > thresh is in the list, with its score
             # (Gaussian: every lane whose plain score is above thresh by
@@ -501,6 +518,41 @@ def check_kernels_at(rows, n, p, w, seed, label, timing=False):
                                           else None)
 
 
+def k2_equals_k1(ks, kv, kg):
+    """K2's (P, R) scores at the lanes of K1's list equal its finite values
+    bit for bit (one tensor-core body, the same column chunks)."""
+    import torch
+    fin = torch.isfinite(kv)
+    return torch.equal(ks.gather(1, kg.long())[fin], kv[fin])
+
+
+def check_k2_equals_k1(rows=2_097_152, n=1008, p=101, w=256):
+    """On the flagship batch, at both precisions, Gaussian and dyadic: K2's
+    score at every lane of K1's list (thresh at the 100th score) is K1's
+    value, so the fallback merges K1's buffered candidates with K2's
+    rescored batch in one arithmetic."""
+    import torch
+    from kmersgwas_tpu_torch.ops import score
+    for gaussian in (False, True):
+        packed, pc, yp, ysum = make_batch(rows, n, p, 17, rows // 8 + 37,
+                                          gaussian)
+        for prec in ("default", "highest"):
+            kw = dict(n_used=n, min_count=5, precision=prec)
+            ks, _ = score.score_batch_t_bmax(packed, pc, yp, ysum, **kw)
+            q = torch.topk(ks, 100, dim=1).values[:, -1].contiguous()
+            kv, kg, _ = score.score_batch_t_topw(packed, pc, yp, ysum, q,
+                                                 tile_rows=128, cand_w=w,
+                                                 **kw)
+            tag = f"{'gauss' if gaussian else 'dyadic'} {prec}"
+            need(k2_equals_k1(ks, kv, kg), f"flagship {tag}: K2's scores "
+                 "differ from K1's values at K1's lanes")
+            log(f"  flagship {tag}: K2's scores equal K1's "
+                f"{int(torch.isfinite(kv).sum())} values at K1's lanes")
+            del ks
+        del packed, pc
+        torch.cuda.empty_cache()
+
+
 def check_kinship_at(rows, n, n_rows, seed, label, timing=False):
     """K7 (kinship_gram) against kinship_gram_plain: the +-1 Gram of rows
     [0, n_rows) of a (rows, W32) buffer whose tail is random (it must add
@@ -530,7 +582,8 @@ def check_kinship_at(rows, n, n_rows, seed, label, timing=False):
 
 
 def time_step_kernels(rows=2_097_152, n=1008, p=101, w=256):
-    """K1 (its tile and select launches apart) and K3 on one flagship batch
+    """K1 (its tile and select launches apart), K3, and K2 and K4 (their
+    kernels apart from the wrappers' operand build) on one flagship batch
     at both precisions; the same at N=100 ("default"), whose k loop is 2
     ring stages against 16, so the difference is the k loop's share of the
     tile launch; and a GEMM-only yardstick: the bf16 torch.matmul of the
@@ -553,22 +606,38 @@ def time_step_kernels(rows=2_097_152, n=1008, p=101, w=256):
                 return score.score_batch_t_topw(*args, tile_rows=128,
                                                 cand_w=w, precision=prec,
                                                 **kw)
+
+            def k2():
+                return score.score_batch_t_bmax(*args[:4], precision=prec,
+                                                **kw)
+
+            def k4():
+                return score.score_batch_t(*args[:4], precision=prec, **kw)
             t_k1 = cuda_ms(k1)
             t_k3 = cuda_ms(lambda: score.score_batch_t_tilemax(
                 *args, tile_rows=128, precision=prec, **kw))
+            t_k2, t_k4 = cuda_ms(k2), cuda_ms(k4)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    k1()
+                for fn in (k1, k2, k4):
+                    for _ in range(5):
+                        fn()
                 torch.cuda.synchronize()
             _, per = device_busy(prof)
-            tile = sum(t for k, t in per.items()
-                       if "score_topw_tiles" in k) / 5
-            sel = sum(t for k, t in per.items() if "topw_select" in k) / 5
+
+            def kernel_ms(*keys):
+                return sum(t for k, t in per.items()
+                           if all(x in k for x in keys)) / 5
+            tile, sel = kernel_ms("score_topw_tiles"), kernel_ms("topw_select")
+            p2 = kernel_ms("score_plane_kernel", "true>")
+            p4 = kernel_ms("score_plane_kernel", "false>")
             log(f"{'flagship' if n_s == n else f'N={n_s}'} {prec}: K1 "
                 f"score_topw {t_k1:.3f} ms (tile launch {tile:.3f} ms, "
                 f"select launch {sel:.3f} ms by the profiler), K3 "
-                f"score_tilemax {t_k3:.3f} ms (median CUDA-event times)")
+                f"score_tilemax {t_k3:.3f} ms, K2 score_bmax {t_k2:.3f} ms "
+                f"(kernel {p2:.3f} ms by the profiler), K4 score_t "
+                f"{t_k4:.3f} ms (kernel {p4:.3f} ms) (whole calls: median "
+                f"CUDA-event times)")
     g = bitplanes.unpack_bits(packed, torch.bfloat16)
     yb = torch.zeros((g.shape[1], -(-p // 8) * 8), dtype=torch.bfloat16,
                      device="cuda")
@@ -602,6 +671,7 @@ def phase_kernels():
         f"plain {times[9]:.3f} ms (median CUDA-event times)")
     log(f"max abs err over all shapes (gaussian, highest): K1 {e[0]:.3g}, "
         f"K2 {e[1]:.3g}, K3 {e[2]:.3g}, K4 {e[3]:.3g}, K5 {e[4]:.3g}")
+    check_k2_equals_k1()
     time_step_kernels()
     for rows, n, n_rows in ((4096, 100, 4001), (640, 300, 1),
                             (20_000, 1008, 19_963)):
@@ -774,16 +844,106 @@ def phase_main(workdir, n_rows=4_200_000, p=101, k=10001, batch=2_000_000,
 # ---------------------------------------------------------------- phase 4
 
 def device_busy(prof):
-    """(summed device time of every kernel and copy in ms, {name: ms}) of a
-    torch.profiler run."""
+    """(summed time in ms of every kernel, copy and fill the device ran,
+    {name: ms}) of a torch.profiler run. Only the device's own events
+    count: the host ops that launched the kernels, and the device spans of
+    record_function ranges, carry the same time again."""
+    from torch.autograd import DeviceType
     per = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0:
-            per[e.key] = per.get(e.key, 0.0) + t / 1e3
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name.startswith(RANGE) \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     return sum(per.values()), per
+
+
+# phase 4's profiled window of fallback steps starts at this batch, in
+# the threshold's ramp (the first append comes at batch ~45 in `cand_w`
+# mode, ~115-135 in `cand_c`)
+FALLBACK_WINDOW = 5
+RANGE = "smoke::"
+
+
+@contextlib.contextmanager
+def step_ranges():
+    """Name the fallback's pieces for torch.profiler: K2's wrapper call,
+    topk.top_k_from_bmax and scanstep._flush_merge (which calls
+    top_k_from_bmax) run inside record_function ranges RANGE + their
+    names while the block runs. K2's wrapper is named where scanstep
+    reaches it (its `score_ops`), so the wrapper itself, which counts its
+    launches on its own name, is left as it is."""
+    from torch.profiler import record_function
+    from kmersgwas_tpu_torch.ops import scanstep, score, topk
+
+    def named(fn, name):
+        def run(*args, **kw):
+            with record_function(RANGE + name):
+                return fn(*args, **kw)
+        return run
+
+    class ScoreOps:                     # scanstep's view of ops/score.py
+        score_batch_t_bmax = staticmethod(
+            named(score.score_batch_t_bmax, "score_batch_t_bmax"))
+
+        def __getattr__(self, name):
+            return getattr(score, name)
+
+    sites = [(scanstep, "_flush_merge",
+              named(scanstep._flush_merge, "_flush_merge")),
+             (topk, "top_k_from_bmax",
+              named(topk.top_k_from_bmax, "top_k_from_bmax")),
+             (scanstep, "score_ops", ScoreOps())]
+    saved = [getattr(m, a) for m, a, _ in sites]
+    try:
+        for m, a, fn in sites:
+            setattr(m, a, fn)
+        yield
+    finally:
+        for (m, a, _), fn in zip(sites, saved):
+            setattr(m, a, fn)
+
+
+def range_ms(prof, name):
+    """Device time in ms of the kernels launched inside the smoke's range
+    `name` (step_ranges), summed over the profile: the kernels the
+    profiler links to the range's host events and their descendants."""
+    from torch.autograd import DeviceType
+
+    def kernels_us(e):
+        return (sum(k.duration for k in e.kernels)
+                + sum(kernels_us(c) for c in e.cpu_children))
+    return sum(kernels_us(e) for e in prof.events()
+               if e.name == RANGE + name
+               and e.device_type == DeviceType.CPU) / 1e3
+
+
+def fallback_split(prof, wall, n_steps, kernel):
+    """One line: a profiled window's device time per step, split into K2's
+    kernel and the rest of its call (the operand build), top_k_from_bmax,
+    the rest of _flush_merge, the candidate kernel (`kernel`) and the
+    rest."""
+    busy, per = device_busy(prof)
+    if busy <= 0:
+        return "no device time in the trace: not measured"
+    # K2's kernel is launched through ctypes, so the profiler links no
+    # host event to it: it is found by name, and K2's range holds the
+    # PyTorch kernels of its operand build
+    k2 = sum(t for nm, t in per.items()
+             if "score_plane_kernel" in nm and "true>" in nm)
+    build = range_ms(prof, "score_batch_t_bmax")
+    tkb = range_ms(prof, "top_k_from_bmax")
+    merge = range_ms(prof, "_flush_merge")
+    cand = sum(t for nm, t in per.items() if kernel in nm)
+    parts = (("K2 kernel", k2), ("K2's operand build", build),
+             ("top_k_from_bmax", tkb), ("_flush_merge's rest", merge - tkb),
+             (f"{kernel} kernels", cand),
+             ("other", busy - k2 - build - merge - cand))
+    return (f"wall {wall / n_steps:.2f} ms a step, device busy "
+            f"{busy / n_steps:.2f} ms (idle {100 * (1 - busy / wall):.1f} %)"
+            "; per step " + ", ".join(
+                f"{nm} {t / n_steps:.3f} ms ({100 * t / busy:.1f} %)"
+                for nm, t in parts))
 
 
 def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
@@ -801,8 +961,9 @@ def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
     threshold at batch b, after ~170-200 batches. Dyadic phenotypes at
     precision "default" make kernel and plain scores bit-equal, so the final top-k
     must equal, scores and rows, a plain running top-k (plain scores, one
-    stable sort per batch, earlier rows first on ties). The last n_prof
-    steps run under torch.profiler."""
+    stable sort per batch, earlier rows first on ties). Two windows of
+    n_prof steps run back to back under torch.profiler: fallbacks from
+    batch FALLBACK_WINDOW on, and the last n_prof steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from kmersgwas_tpu_torch.ops import scanstep as ss
@@ -843,10 +1004,35 @@ def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
                            b * rows + j - k)
         ov = v[:, :k].contiguous()
 
+    def profiled(bs):
+        """The steps of batches `bs`, back to back under torch.profiler with
+        K2's call, top_k_from_bmax and _flush_merge in named ranges, then
+        the oracle. -> (profile, branch counts, wall ms)."""
+        batches = [batch(b) for b in bs]
+        before = dict(counts)
+        torch.cuda.synchronize()
+        with step_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as pr:
+            t_prof = time.perf_counter()
+            for args in batches:
+                ss.scan_step_compact(state, *args, yp, ysum, **kw)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t_prof)
+        for b, args in zip(bs, batches):
+            oracle(b, *args[:2])
+        return pr, {a: counts.get(a, 0) - before.get(a, 0)
+                    for a in ("narrow", "wide", "fallback", "flush")}, wall
+
+    tag = f"stream {mode}"
     step_ms = {"append": [], "fallback": []}
     first_append = None
     t0 = time.perf_counter()
-    for b in range(n_batches):
+    b = 0
+    while b < n_batches:
+        if b == FALLBACK_WINDOW:            # deep in the threshold's ramp
+            fb = profiled(range(b, b + n_prof))
+            b += n_prof
+            continue
         args = batch(b)
         before = counts.get("fallback", 0)
         torch.cuda.synchronize()
@@ -858,24 +1044,12 @@ def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
         if kind == "append" and first_append is None:
             first_append = b
         oracle(b, *args[:2])
-    prof_args = [batch(b) for b in range(n_batches, n_batches + n_prof)]
-    before = dict(counts)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_prof = time.perf_counter()
-        for args in prof_args:
-            ss.scan_step_compact(state, *args, yp, ysum, **kw)
-        torch.cuda.synchronize()
-        wall_prof = 1e3 * (time.perf_counter() - t_prof)
-    prof_kinds = {a: counts.get(a, 0) - before.get(a, 0)
-                  for a in ("narrow", "wide", "fallback", "flush")}
-    for b, args in enumerate(prof_args, start=n_batches):
-        oracle(b, *args[:2])
+        b += 1
+    prof, prof_kinds, wall_prof = profiled(range(n_batches,
+                                                 n_batches + n_prof))
     final = ss.flush_buffered(state)
     got_rows = topk.decode_rows(final.row_lo.cpu().numpy(),
                                 final.row_hi.cpu().numpy())
-    tag = f"stream {mode}"
     log(f"{tag}: {n_batches + n_prof} batches of {rows} rows, N={n} P={p} "
         f"k={k} in {time.perf_counter() - t0:.1f} s; branches {counts}; "
         f"first append at batch {first_append}")
@@ -893,6 +1067,11 @@ def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
            f"{mine:.3f} ms = {100 * mine / busy:.1f} % of device time; top "
            "kernels " + ", ".join(f"{nm[:48]} {t:.3f} ms" for nm, t in top)
            if busy > 0 else "no device time in the trace: not measured)"))
+    fb_prof, fb_kinds, fb_wall = fb
+    log(f"{tag}: profiled {n_prof} steps from batch {FALLBACK_WINDOW} "
+        f"{fb_kinds}: " + fallback_split(fb_prof, fb_wall, n_prof, kernel))
+    need(fb_kinds["fallback"] == n_prof,
+         f"{tag}: the ramp's window took other branches: {fb_kinds}")
     need(counts.get("narrow", 0) + counts.get("wide", 0) >= 10,
          f"{tag}: the append branch ran only {counts} times")
     need(counts.get("fallback", 0) >= 1, f"{tag}: no fallback step: {counts}")

@@ -1,7 +1,12 @@
-// Shared body of the association-score kernels (score_topw.cu, score_bmax.cu,
-// score_tilemax.cu, score_t.cu, score_rows.cu).
+// Shared pieces of the association-score kernels. Every score kernel takes
+// its tile height (TILE_ROWS), the top-3 layout (TM_R x TM_C) and the score
+// epilogue (score_value / score_epilogue) from here; the tensor-core body
+// of score_wgmma.cuh (K1 score_topw.cu, K3 score_tilemax.cu, K2 and K4
+// score_plane.cu) sums on the tensor cores. The f32 FMA body below
+// (load_packed_tile, add_word, score_tile, TILE_COLS) is K5's alone
+// (score_rows.cu).
 //
-// Every kernel scores one tile of TILE_ROWS k-mers against one chunk of
+// The FMA body scores one tile of TILE_ROWS k-mers against one chunk of
 // TILE_COLS phenotype columns per block:
 //
 //     yigi[row][c]  = sum of y[k][c] over the set bits k of the row's packed

@@ -1,5 +1,6 @@
 // Tensor-core tile body of the scan step's score kernels on Hopper (sm_90a):
-// K1's tile launch (score_topw.cu) and K3 (score_tilemax.cu).
+// K1's tile launch (score_topw.cu, also run by K8's score_parity.cu), K3
+// (score_tilemax.cu), and K2 and K4 (score_plane.cu).
 //
 // One block scores one TILE_ROWS-row tile of k-mers against one chunk of NC
 // phenotype columns (NC = 8 * N8 <= 128, a multiple of 8: P = 101 runs as
@@ -9,7 +10,8 @@
 //
 // on the tensor cores, then writes the tile's f32 scores (score_common.cuh
 // `score_epilogue`, -inf on padding rows) to shared memory, column-major, for
-// the caller's per-column reductions (tile_top3.cuh).
+// the caller's epilogue: per-column reductions (tile_top3.cuh) or the score
+// plane's bulk stores (score_plane.cu).
 //
 // Roles. 288 threads: warpgroups 0 and 1 are consumers and own rows 0-63 and
 // 64-127 of the tile; warp 8 is the producer.
@@ -45,6 +47,11 @@
 // from a plain f32 sum are the order of the additions and the tensor core's
 // adder. On dyadic phenotypes (multiples of 1/8, |yigi| <= 8064) every
 // partial sum is exact and the scores are bit-equal to the plain version.
+//
+// Registers. The 128-column chunk sits at the cap of two blocks an SM (96
+// registers): each kernel's ptxas lines are checked for spills and
+// serialized products (chip_smoke.py phase 1); score_plane.cu caps its
+// kernel with __maxnreg__(96) where the launch bound made ptxas serialize.
 //
 // Shared memory: max(ring, score tile) + the ring's mbarriers. The score
 // tile (NC columns x S_LD floats) reuses the ring once every product is
@@ -249,6 +256,24 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
         : "memory");
 }
 
+// Bulk copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from shared to global memory, tracked by this thread's bulk groups.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void consumers_sync() {
     asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");
 }
@@ -365,8 +390,10 @@ __device__ __forceinline__ void wgmma_k_loop(
 // this; it returns false in the producer warp, which has nothing more to
 // do, and true in the consumers once the whole tile is in shared memory.
 // `b` holds the chunk's n_kc stages of `shape.stage_bytes`; ysum the
-// chunk's column sums.
-template <int N8>
+// chunk's column sums. ASYNC_READ: the caller reads the tile with bulk
+// copies (the async proxy), so each thread fences its tile writes before
+// the closing barrier.
+template <int N8, bool ASYNC_READ = false>
 __device__ __forceinline__ bool wgmma_score_tile(
         const uint32_t* __restrict__ packed, const float* __restrict__ popcnt,
         const unsigned char* __restrict__ b, const float* __restrict__ ysum,
@@ -438,6 +465,8 @@ __device__ __forceinline__ bool wgmma_score_tile(
         st[(c + 1) * S_LD + r + 8] = score_epilogue(acc[4 * j + 3], n1b, y1,
                                                     n_used, min_count);
     }
+    if (ASYNC_READ)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     consumers_sync();
     return true;
 }

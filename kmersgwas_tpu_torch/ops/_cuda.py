@@ -31,9 +31,9 @@ from dataclasses import dataclass
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("score_topw.cu", "score_bmax.cu", "score_tilemax.cu",
-           "score_t.cu", "score_rows.cu", "kinship_gram.cu",
-           "gen_planes.cu", "score_parity.cu", "tile_reduce.cu")
+SOURCES = ("score_topw.cu", "score_plane.cu", "score_tilemax.cu",
+           "score_rows.cu", "kinship_gram.cu", "gen_planes.cu",
+           "score_parity.cu", "tile_reduce.cu")
 HEADERS = ("score_common.cuh", "tile_top3.cuh", "score_topw.cuh",
            "score_wgmma.cuh")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)     # looked at after PATH
@@ -44,15 +44,16 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # block tile of the kernels (csrc/score_common.cuh TILE_ROWS / TILE_COLS):
 # batch rows must be a multiple of TILE_ROWS, and the top-3 captures of
 # score_topw and score_tilemax are per TILE_ROWS-row tile. TILE_COLS is the
-# column chunk of the FMA body (score_bmax, score_t, score_rows).
+# column chunk of the f32 FMA body, which only score_rows (K5) still runs.
 TILE_ROWS = 128
 TILE_COLS = 64
 # column chunks the tensor-core body (csrc/score_wgmma.cuh) is built for
-# (its `dispatch_chunk`): score_topw, score_tilemax and score_parity run P
-# columns as chunks of one of these widths. The widest is 128, not wgmma's
-# 256: chunks of 192 and 256 columns need more registers than two blocks
-# an SM leave, and at one block an SM they took longer per column than
-# chunks of 128 at two (timed on the card).
+# (its `dispatch_chunk`): score_topw, score_tilemax, score_parity and
+# score_plane (score_bmax, score_t) run P columns as chunks of one of these
+# widths. The widest is 128, not wgmma's 256: chunks of 192 and 256 columns
+# need more registers than two blocks an SM leave, and at one block an SM
+# they took longer per column than chunks of 128 at two (timed on the
+# card).
 WGMMA_CHUNKS = (8, 16, 32, 64, 104, 128)
 # samples per stage of the tensor-core body's ring (csrc/score_wgmma.cuh KC)
 WGMMA_KC = 64
@@ -134,12 +135,16 @@ def library() -> KernelLib:
         _P, _P, _P,                    # tile_v, tile_g, tile_cnt
         _P, _P, _P,                    # out_v, out_g, out_ok
         _P]                            # stream
-    lib.kgt_score_bmax.restype = _I
-    lib.kgt_score_bmax.argtypes = [
-        _P, _P, _P, _P,                # packed, popcnt, y, ysum
-        _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
-        _P, _P,                        # scores, bmax
-        _P]                            # stream
+    for name, outs in (("kgt_score_bmax", [_P, _P]),   # scores, bmax
+                       ("kgt_score_t", [_P])):          # scores
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = [
+            _P, _P, _P, _P,            # packed, popcnt, b, ysum
+            _LL, _I, _I,               # n_rows, w32, p
+            _I, _I, _I, _F, _F,        # nc, n_cc, planes, n, min_count
+            *outs,
+            _P]                        # stream
     lib.kgt_score_tilemax.restype = _I
     lib.kgt_score_tilemax.argtypes = [
         _P, _P, _P, _P, _P,            # packed, popcnt, b, ysum, thresh
@@ -148,14 +153,12 @@ def library() -> KernelLib:
         _P, _P, _P, _P, _P, _P,        # tmax, targ, tmax2, targ2, tmax3, targ3
         _P, _P, _P,                    # n2, n3, cnt
         _P]                            # stream
-    for name in ("kgt_score_t", "kgt_score_rows"):
-        fn = getattr(lib, name)
-        fn.restype = _I
-        fn.argtypes = [
-            _P, _P, _P, _P,            # packed, popcnt, y, ysum
-            _LL, _I, _I, _I, _F, _F,   # n_rows, w32, p, p_pad, n, min_count
-            _P,                        # scores
-            _P]                        # stream
+    lib.kgt_score_rows.restype = _I
+    lib.kgt_score_rows.argtypes = [
+        _P, _P, _P, _P,                # packed, popcnt, y, ysum
+        _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
+        _P,                            # scores
+        _P]                            # stream
     lib.kgt_kinship_gram.restype = _I
     lib.kgt_kinship_gram.argtypes = [
         _P, _LL, _I,                   # packed, n_rows, w32

@@ -16,12 +16,13 @@ Precision is explicit and never inherited from torch's global flags:
   "highest" — f32 products, f32 sums;
   "default" — y rounded to bf16, times the exact 0/1 bits, f32 sums (what
               kmersgwas_tpu/ops/score.py:88-106 documents for the TPU).
-The kernels have two bodies. The scan step's per-batch kernels (K1
-score_topw, K3 score_tilemax, and K8 score_parity through K1's tile launch)
-run on the tensor cores (csrc/score_wgmma.cuh): y goes in as bf16 planes
-(`bf16_planes`: one at "default", three summing to y at "highest") in the
-kernel's layout (`wgmma_operand`). K2, K4 and K5 keep the f32 FMA body
-(csrc/score_common.cuh), with y rounded by `gemm_operand` before the launch.
+The kernels have two bodies. The scan step's kernels (K1 score_topw, K3
+score_tilemax, K8 score_parity through K1's tile launch, and the score
+plane's K2 score_bmax and K4 score_t) run on the tensor cores
+(csrc/score_wgmma.cuh): y goes in as bf16 planes (`bf16_planes`: one at
+"default", three summing to y at "highest") in the kernel's layout
+(`wgmma_operand`). K5 alone keeps the f32 FMA body (csrc/score_common.cuh),
+with y rounded by `gemm_operand` before the launch.
 
 Each kernel wrapper sends a CPU tensor to the plain version and a CUDA
 tensor to the kernel; there is no other route and no fallback. Each keeps
@@ -329,9 +330,8 @@ def _check_batch(packed, popcnt, y_padded, y_sum):
 
 
 def _kernel_inputs(packed, popcnt, y_padded, y_sum, precision):
-    """Validate an FMA-body kernel call's inputs (score_bmax, score_t,
-    score_rows); -> (rows, w32, p, p_pad, y, ysum) with y/ysum zero-padded
-    to the kernel's column chunk."""
+    """Validate the FMA-body kernel's inputs (score_rows, K5); -> (rows,
+    w32, p, p_pad, y, ysum) with y/ysum zero-padded to its column chunk."""
     rows, w32, p = _check_batch(packed, popcnt, y_padded, y_sum)
     dev = packed.device
     p_pad = -(-p // _cuda.TILE_COLS) * _cuda.TILE_COLS
@@ -342,22 +342,31 @@ def _kernel_inputs(packed, popcnt, y_padded, y_sum, precision):
     return rows, w32, p, p_pad, y, ys
 
 
-def _wgmma_inputs(packed, popcnt, y_padded, y_sum, thresh, precision):
-    """Validate a tensor-core kernel call's inputs (score_topw,
-    score_tilemax, score_parity); -> (rows, w32, p, b, ysum, thresh) with b
-    the `wgmma_operand` of the call's column chunk and ysum / thresh padded
-    to its n_cc * nc columns (0 and +inf)."""
+def _plane_inputs(packed, popcnt, y_padded, y_sum, precision):
+    """Validate a tensor-core kernel call's batch; -> (rows, w32, p, b,
+    ysum) with b the `wgmma_operand` of the call's column chunk and ysum
+    padded with 0 to its n_cc * nc columns. All a score-plane kernel
+    (score_bmax, score_t) takes."""
     rows, w32, p = _check_batch(packed, popcnt, y_padded, y_sum)
+    nc, _ = column_chunks(p)
+    b = wgmma_operand(y_padded, precision, nc)
+    ys = torch.zeros(b.shape[0] * nc, dtype=torch.float32,
+                     device=packed.device)
+    ys[:p] = y_sum
+    return rows, w32, p, b, ys
+
+
+def _wgmma_inputs(packed, popcnt, y_padded, y_sum, thresh, precision):
+    """Validate a thresholded tensor-core kernel call's inputs (score_topw,
+    score_tilemax, score_parity); -> (rows, w32, p, b, ysum, thresh): those
+    of `_plane_inputs` and thresh padded with +inf to the same columns."""
+    rows, w32, p, b, ys = _plane_inputs(packed, popcnt, y_padded, y_sum,
+                                        precision)
     dev = packed.device
     if thresh.device != dev or thresh.dtype != torch.float32 \
             or thresh.shape != (p,):
         raise ValueError(f"thresh must be a ({p},) float32 tensor on {dev}")
-    nc, _ = column_chunks(p)
-    b = wgmma_operand(y_padded, precision, nc)
-    p_tot = b.shape[0] * nc
-    ys = torch.zeros(p_tot, dtype=torch.float32, device=dev)
-    ys[:p] = y_sum
-    th = torch.full((p_tot,), float("inf"), dtype=torch.float32, device=dev)
+    th = torch.full(ys.shape, float("inf"), dtype=torch.float32, device=dev)
     th[:p] = thresh
     return rows, w32, p, b, ys, th
 
@@ -374,37 +383,43 @@ def _require_cuda(t: torch.Tensor) -> None:
                          "the kernel")
 
 
-def _scores_kernel(entry: str, packed, popcnt, y_padded, y_sum, *,
-                   n_used: int, min_count: int, precision: str, transposed):
-    """Launch kgt_score_t (-> (P, R)) or kgt_score_rows (-> (R, P))."""
-    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
-                                                y_sum, precision)
+def _plane_kernel(packed, popcnt, y_padded, y_sum, *, n_used: int,
+                  min_count: int, precision: str, with_bmax: bool):
+    """Launch kgt_score_bmax (with_bmax) or kgt_score_t (csrc/score_plane.cu)
+    -> ((P, R) scores, (P, R/16) block maxima or None)."""
+    rows, w32, p, b, ys = _plane_inputs(packed, popcnt, y_padded, y_sum,
+                                        precision)
     dev = packed.device
-    scores = torch.empty((p, rows) if transposed else (rows, p),
-                         dtype=torch.float32, device=dev)
+    scores = torch.empty((p, rows), dtype=torch.float32, device=dev)
+    bmax = (torch.empty((p, rows // 16), dtype=torch.float32, device=dev)
+            if with_bmax else None)
+    entry = "kgt_score_bmax" if with_bmax else "kgt_score_t"
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = getattr(lib.lib, entry)(
-            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
-            ys.data_ptr(), rows, w32, p, p_pad, float(n_used),
+            packed.data_ptr(), popcnt.data_ptr(), b.data_ptr(),
+            ys.data_ptr(), rows, w32, p, *_chunk_args(b), float(n_used),
             float(min_count), scores.data_ptr(),
+            *((bmax.data_ptr(),) if with_bmax else ()),
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc, entry)
-    return scores
+    return scores, bmax
 
 
 def score_batch_t(packed, popcnt, y_padded, y_sum, *, n_used: int,
                   min_count: int, precision: str = "default"):
-    """Transposed scores (csrc/score_t.cu; replaces kmersgwas_tpu
-    score_batch_t_pallas): -> (P, R) f32, padding rows (popcnt == 0) at
-    -inf. The scoring of the plain scan step (ops/scanstep.scan_step)."""
+    """Transposed scores (csrc/score_plane.cu `kgt_score_t`, on the
+    tensor-core body; replaces kmersgwas_tpu score_batch_t_pallas): -> (P,
+    R) f32, padding rows (popcnt == 0) at -inf. The scoring of the plain
+    scan step (ops/scanstep.scan_step). On the card, the shapes
+    `_plane_inputs` takes."""
     if packed.device.type == "cpu":
         return scores_t_plain(packed, popcnt, y_padded, y_sum, n_used=n_used,
                               min_count=min_count, precision=precision)
     _require_cuda(packed)
-    out = _scores_kernel("kgt_score_t", packed, popcnt, y_padded, y_sum,
-                         n_used=n_used, min_count=min_count,
-                         precision=precision, transposed=True)
+    out, _ = _plane_kernel(packed, popcnt, y_padded, y_sum, n_used=n_used,
+                           min_count=min_count, precision=precision,
+                           with_bmax=False)
     score_batch_t.launches += 1
     return out
 
@@ -414,18 +429,27 @@ score_batch_t.launches = 0
 
 def score_batch(packed, popcnt, y_padded, y_sum, *, n_used: int,
                 min_count: int, precision: str = "default"):
-    """Row-major scores (csrc/score_rows.cu; replaces kmersgwas_tpu
-    score_batch_pallas): -> (R, P) f32, 0 where the MAC test fails and no
-    padding mask."""
+    """Row-major scores (csrc/score_rows.cu, the f32 FMA body; replaces
+    kmersgwas_tpu score_batch_pallas): -> (R, P) f32, 0 where the MAC test
+    fails and no padding mask."""
     if packed.device.type == "cpu":
         return scores_plain(packed, popcnt, y_padded, y_sum, n_used=n_used,
                             min_count=min_count, precision=precision)
     _require_cuda(packed)
-    out = _scores_kernel("kgt_score_rows", packed, popcnt, y_padded, y_sum,
-                         n_used=n_used, min_count=min_count,
-                         precision=precision, transposed=False)
+    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
+                                                y_sum, precision)
+    dev = packed.device
+    scores = torch.empty((rows, p), dtype=torch.float32, device=dev)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = lib.lib.kgt_score_rows(
+            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
+            ys.data_ptr(), rows, w32, p, p_pad, float(n_used),
+            float(min_count), scores.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "score_rows")
     score_batch.launches += 1
-    return out
+    return scores
 
 
 score_batch.launches = 0
@@ -539,9 +563,11 @@ score_batch_t_parity.launches = 0
 def score_batch_t_bmax(packed, popcnt, y_padded, y_sum, *, n_used: int,
                        min_count: int, block: int = 16,
                        precision: str = "default"):
-    """Exact-fallback kernel (csrc/score_bmax.cu; replaces kmersgwas_tpu
-    score_batch_t_pallas_bmax): -> (scores (P, R) f32, maxima of the
-    contiguous `block`-lane blocks (P, R/block)). On the card block is 16."""
+    """Exact-fallback kernel (csrc/score_plane.cu `kgt_score_bmax`, on the
+    tensor-core body; replaces kmersgwas_tpu score_batch_t_pallas_bmax): ->
+    (scores (P, R) f32, maxima of the contiguous `block`-lane blocks (P,
+    R/block)). On the card block is 16 and the shapes those `_plane_inputs`
+    takes; at the same P its scores equal score_batch_t_topw's values."""
     if packed.device.type == "cpu":
         return scores_and_bmax_plain(packed, popcnt, y_padded, y_sum,
                                      n_used=n_used, min_count=min_count,
@@ -550,21 +576,11 @@ def score_batch_t_bmax(packed, popcnt, y_padded, y_sum, *, n_used: int,
     if block != 16:
         raise ValueError(f"the score_bmax kernel folds 16-lane blocks, "
                          f"got {block}")
-    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
-                                                y_sum, precision)
-    dev = packed.device
-    scores = torch.empty((p, rows), dtype=torch.float32, device=dev)
-    bmax = torch.empty((p, rows // 16), dtype=torch.float32, device=dev)
-    lib = _cuda.library()
-    with torch.cuda.device(dev):
-        rc = lib.lib.kgt_score_bmax(
-            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
-            ys.data_ptr(), rows, w32, p, p_pad, float(n_used),
-            float(min_count), scores.data_ptr(), bmax.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _cuda.check(lib, rc, "score_bmax")
+    out = _plane_kernel(packed, popcnt, y_padded, y_sum, n_used=n_used,
+                        min_count=min_count, precision=precision,
+                        with_bmax=True)
     score_batch_t_bmax.launches += 1
-    return scores, bmax
+    return out
 
 
 score_batch_t_bmax.launches = 0

@@ -25,7 +25,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def batch(rows, n, p, seed, dev):
+def batch(rows, n, p, seed, dev, gaussian=False):
     rng = np.random.default_rng(seed)
     n_pad = -(-n // 128) * 128
     bits = rng.integers(0, 2, size=(rows, n)).astype(np.uint8)
@@ -33,7 +33,8 @@ def batch(rows, n, p, seed, dev):
     padded = np.zeros((rows, n_pad), np.uint8)
     padded[:, :n] = bits
     packed = bitplanes.as_planes(bitplanes.pack_bits_np(padded)).to(dev)
-    y = np.round(rng.uniform(-8, 8, size=(n, p)) * 8) / 8   # dyadic: exact
+    y = (rng.normal(size=(n, p)) if gaussian
+         else np.round(rng.uniform(-8, 8, size=(n, p)) * 8) / 8)  # dyadic
     yp, ysum = score.prepare_phenotypes(y, n_pad, dev)
     return packed, bitplanes.popcount_rows(packed), yp, ysum
 
@@ -130,9 +131,9 @@ def test_tensor_core_kernels_equal_plain(cuda, p, precision):
 
 @pytest.mark.parametrize("precision", ["default", "highest"])
 def test_topw_lists_equal_the_fma_body_selection(cuda, precision):
-    """Across the two bodies: K1's top-W lists (tensor cores) equal the
-    top-W selected from K2's scores (the f32 FMA body of score_common.cuh)
-    for the same dyadic batch."""
+    """K1's top-W lists equal the top-W selected from K2's score plane
+    (both on the tensor-core body, K2 through the score-plane epilogue of
+    csrc/score_plane.cu) for the same dyadic batch."""
     packed, pc, yp, ysum = batch(8192, 1008, 101, 11, cuda)
     kw = dict(n_used=1008, min_count=5, precision=precision)
     ks, _ = score.score_batch_t_bmax(packed, pc, yp, ysum, **kw)
@@ -146,6 +147,49 @@ def test_topw_lists_equal_the_fma_body_selection(cuda, precision):
                              256)
         assert torch.equal(kv, v) and torch.equal(kg, g)
         assert torch.equal(kok, ok)
+
+
+@pytest.mark.parametrize("p", [1, 3, 8, 101, 104, 128, 129, 256, 509, 1013])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_score_plane_kernels_equal_plain(cuda, p, precision):
+    """K2 (scores and contiguous 16-lane block maxima) and K4 (scores), on
+    the tensor-core body with the score-plane epilogue, bit-equal to their
+    plain versions on dyadic phenotypes with padding rows, at every column
+    chunk (P = 1 to 1013: one chunk of 8 to eight of 128), also on a
+    column subset as the fallback passes it (y_padded[:, cols])."""
+    rows, n = 1024, 300
+    packed, pc, yp, ysum = batch(rows, n, p, 9 * p, cuda)
+    kw = dict(n_used=n, min_count=5, precision=precision)
+    launches = (score.score_batch_t_bmax.launches,
+                score.score_batch_t.launches)
+    cols = torch.tensor(sorted({0, p // 3, p // 2, p - 1}), device=cuda)
+    for y, ys in ((yp, ysum), (yp[:, cols], ysum[cols])):
+        ks, kb = score.score_batch_t_bmax(packed, pc, y, ys, **kw)
+        ps, pbm = score.scores_and_bmax_plain(packed, pc, y, ys, **kw)
+        assert torch.equal(ks, ps) and torch.equal(kb, pbm)
+        assert torch.equal(score.score_batch_t(packed, pc, y, ys, **kw), ps)
+        assert bool((ks == float("-inf")).any())
+    assert (score.score_batch_t_bmax.launches,
+            score.score_batch_t.launches) == tuple(x + 2 for x in launches)
+
+
+@pytest.mark.parametrize("gaussian", [False, True])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_score_bmax_equals_topw_values(cuda, gaussian, precision):
+    """K2 and K1 share the tensor-core body: at the same P (so the same
+    column chunks) K2's score at every lane of K1's list is K1's value, bit
+    for bit, on Gaussian phenotypes too, so the fallback's merge of K1's
+    buffered candidates with K2's rescored batch compares like with
+    like."""
+    packed, pc, yp, ysum = batch(8192, 1008, 101, 13, cuda, gaussian)
+    kw = dict(n_used=1008, min_count=5, precision=precision)
+    ks, _ = score.score_batch_t_bmax(packed, pc, yp, ysum, **kw)
+    q = torch.topk(ks, 64, dim=1).values[:, -1].contiguous()
+    for th in (q, torch.full((101,), float("-inf"), device=cuda)):
+        kv, kg, _ = score.score_batch_t_topw(packed, pc, yp, ysum, th,
+                                             tile_rows=128, cand_w=128, **kw)
+        assert bool(torch.isfinite(kv).all())
+        assert torch.equal(ks.gather(1, kg.long()), kv)
 
 
 @pytest.mark.parametrize("rows,n,p", [(1024, 100, 3), (4096, 1008, 101)])

@@ -1,8 +1,9 @@
 """The tensor-core body of the scan step's score kernels (K1 score_topw, K3
-score_tilemax, K8 score_parity; kmersgwas_tpu_torch/csrc/score_wgmma.cuh)
-on the CPU: its operand preparation, a torch emulation of its arithmetic,
-and the wrappers' refusals. The kernels themselves run only on the card
-(tests/test_torch_gpu.py).
+score_tilemax, K8 score_parity, and the score plane's K2 score_bmax and K4
+score_t; kmersgwas_tpu_torch/csrc/score_wgmma.cuh, score_plane.cu) on the
+CPU: its operand preparation, a torch emulation of its arithmetic and of
+the score plane's epilogue, and the wrappers' refusals. The kernels
+themselves run only on the card (tests/test_torch_gpu.py).
 
 The emulation reads the B operand the way the kernel's descriptors do
 (8x8 core matrices, 128 bytes apart along the samples, 1024 along the
@@ -18,6 +19,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from kmersgwas_tpu.ops import bitplanes as jbits
 from kmersgwas_tpu.ops import scanstep as jss
@@ -70,10 +72,9 @@ def jax_args(pb):
 def emulate_scores_t(packed, popcnt, y_padded, y_sum, *, n_used, min_count,
                      precision):
     """(P, R) scores as the kernel computes them, from the operand its
-    wrapper builds (`_wgmma_inputs`)."""
-    thresh = torch.zeros_like(y_sum)
-    rows, _, p, b, ys, _ = score._wgmma_inputs(packed, popcnt, y_padded,
-                                               y_sum, thresh, precision)
+    wrapper builds (`_plane_inputs`)."""
+    rows, _, p, b, ys = score._plane_inputs(packed, popcnt, y_padded, y_sum,
+                                            precision)
     nc, n_cc, planes = score._chunk_args(b)
     n_kc = b.shape[1]
     flat = b.reshape(n_cc, n_kc, -1).to(torch.float32)
@@ -97,6 +98,40 @@ def emulate_scores_t(packed, popcnt, y_padded, y_sum, *, n_used, min_count,
         yigi[cc * nc:(cc + 1) * nc] = acc.T
     return score.score_epilogue_t(yigi, popcnt, ys, n_used,
                                   min_count)[:p].contiguous()
+
+
+def emulate_plane(args, **kw):
+    """K2's outputs as its epilogue (csrc/score_plane.cu) makes them from
+    the tile: column c of a 128-row tile is copied whole to scores[c,
+    row0:row0 + 128]; for the block maxima lane l of the column's warp
+    takes the max of rows 4l to 4l+3, two xor shuffles (1, 2) take it over
+    lanes 4g to 4g+3, and lane 4g writes bmax[c, row0 / 16 + g]. -> (scores
+    (P, R), bmax (P, R/16))."""
+    sc = emulate_scores_t(*args, **kw)
+    p, r = sc.shape
+    lane = sc.view(p, r // 128, 32, 4).amax(dim=-1)
+    bmax = lane.view(p, r // 128, 8, 4).amax(dim=-1)
+    return sc, bmax.reshape(p, r // 16)
+
+
+def jax_plane(pb, y_cols=None, precision="default"):
+    """The JAX package's score_batch_t_pallas and score_batch_t_pallas_bmax
+    in interpret mode on the columns `y_cols` (default: all), with the
+    strided block maxima refolded into contiguous ones from the scores.
+    -> (K4 scores, K2 scores, K2 contiguous bmax), numpy."""
+    packed, pc, yp, ysum = jax_args(pb)
+    if y_cols is not None:
+        cols = jnp.asarray(y_cols)
+        yp, ysum = yp[:, cols], ysum[cols]
+    kw = dict(n_used=pb["n"], min_count=2, tile_rows=128,
+              precision=precision)
+    with pltpu.force_tpu_interpret_mode():
+        s4 = np.array(jscore.score_batch_t_pallas(packed, pc, yp, ysum,
+                                                  **kw))
+        s2, _ = jscore.score_batch_t_pallas_bmax(packed, pc, yp, ysum,
+                                                 block=16, **kw)
+    s2 = np.array(s2)
+    return s4, s2, s2.reshape(s2.shape[0], -1, 16).max(axis=2)
 
 
 def emulate_topw(args, thresh, *, tile_rows, cand_w, **kw):
@@ -268,6 +303,60 @@ def test_emulated_highest_gaussian_within_rtol(p):
         100 * float((got - want)[fin].abs().max())
 
 
+@pytest.mark.parametrize("p", [1, 3, 8, 101, 257])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_emulated_plane_equals_plain_and_jax(p, precision):
+    """K2's scores and contiguous block maxima and K4's scores, emulated
+    through the tensor-core arithmetic and the score plane's epilogue, on
+    dyadic phenotypes with padding rows: bit-equal to the plain versions
+    and to the JAX package's kernels in interpret mode (whose strided block
+    maxima are refolded from its scores)."""
+    pb = problem(50 + p, p=p)
+    args = torch_args(pb)
+    kw = dict(n_used=pb["n"], min_count=2, precision=precision)
+    sc, bmax = emulate_plane(args, **kw)
+    assert sc.shape == (p, 256) and bmax.shape == (p, 16)
+    assert bool((sc[:, -9:] == float("-inf")).all())
+    ps, pbm = score.scores_and_bmax_plain(*args, **kw)
+    assert torch.equal(sc, ps) and torch.equal(bmax, pbm)
+    assert torch.equal(sc, score.scores_t_plain(*args, **kw))
+    s4, s2, b2 = jax_plane(pb, precision=precision)
+    for got, want in ((sc, s4), (sc, s2), (bmax, b2)):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("gaussian,precision", [
+    (False, "default"), (False, "highest"), (True, "highest")])
+def test_emulated_plane_on_a_column_subset(gaussian, precision):
+    """The fallback calls K2 on the failing column groups only,
+    y_padded[:, cols]: the emulation on cols = [0, 5, 6, 99] of 101 columns
+    (one chunk of 8) against the plain versions and the JAX kernels on the
+    same columns, bit-equal on dyadic phenotypes, within RTOL on Gaussian
+    ones at "highest"."""
+    pb = problem(60, p=101, gaussian=gaussian)
+    cols = [0, 5, 6, 99]
+    packed, pc, yp, ysum = torch_args(pb)
+    sub = (packed, pc, yp[:, cols], ysum[cols])
+    kw = dict(n_used=pb["n"], min_count=2, precision=precision)
+    assert score.column_chunks(len(cols)) == (8, 1)
+    sc, bmax = emulate_plane(sub, **kw)
+    ps, pbm = score.scores_and_bmax_plain(*sub, **kw)
+    full = score.scores_t_plain(packed, pc, yp, ysum, **kw)[cols]
+    s4, s2, b2 = jax_plane(pb, cols, precision)
+    if not gaussian:
+        assert torch.equal(sc, ps) and torch.equal(bmax, pbm)
+        assert torch.equal(sc, full)
+        for got, want in ((sc, s4), (sc, s2), (bmax, b2)):
+            np.testing.assert_array_equal(got.numpy(), want)
+        return
+    scale = torch.where(torch.isfinite(ps), ps.abs(), 0.0).amax(
+        dim=1, keepdim=True)
+    for got, want in ((sc, ps), (sc, torch.from_numpy(s4)),
+                      (sc, torch.from_numpy(s2)), (bmax, pbm),
+                      (bmax, torch.from_numpy(b2))):
+        assert_close(got, want, scale)
+
+
 # ------------------------------------------------------------ refusals
 
 def good_inputs(rows=256, n_pad=128, p=3):
@@ -287,6 +376,32 @@ def good_inputs(rows=256, n_pad=128, p=3):
     ("packed", "contiguous \\(R, W32\\) int32"),
 ])
 def test_wgmma_inputs_refuse_bad_shapes(case, match):
+    packed, pc, yp, ysum, th = bad_inputs(case)
+    with pytest.raises(ValueError, match=match):
+        score._wgmma_inputs(packed, pc, yp, ysum, th, "default")
+
+
+@pytest.mark.parametrize("case,match", [
+    ("rows", "multiple of 128"),
+    ("w32_odd", "multiple of 4"),
+    ("w32_big", "multiple of 4"),
+    ("n_pad", "32\\*W32"),
+    ("no_columns", "at least one column"),
+    ("ysum_shape", "y_sum must be"),
+    ("dtype", "float32"),
+    ("packed", "contiguous \\(R, W32\\) int32"),
+    ("precision", "precision"),
+])
+def test_plane_inputs_refuse_bad_shapes(case, match):
+    """What K2 and K4 take on the card (`_plane_inputs`): the batch checks
+    of the thresholded kernels, without a threshold."""
+    packed, pc, yp, ysum, _ = bad_inputs(case)
+    with pytest.raises(ValueError, match=match):
+        score._plane_inputs(packed, pc, yp, ysum,
+                            "tf32" if case == "precision" else "default")
+
+
+def bad_inputs(case):
     packed, pc, yp, ysum, th = good_inputs()
     if case == "rows":
         packed, pc = packed[:200].contiguous(), pc[:200].contiguous()
@@ -308,8 +423,7 @@ def test_wgmma_inputs_refuse_bad_shapes(case, match):
         pc = pc.double()
     elif case == "packed":
         packed = packed.t()
-    with pytest.raises(ValueError, match=match):
-        score._wgmma_inputs(packed, pc, yp, ysum, th, "default")
+    return packed, pc, yp, ysum, th
 
 
 def test_wgmma_inputs_pad_the_chunk():
@@ -321,6 +435,9 @@ def test_wgmma_inputs_pad_the_chunk():
     assert torch.equal(ys[:101], ysum) and not ys[101:].any()
     assert torch.equal(tp[:101], th + 1.0)
     assert bool((tp[101:] == float("inf")).all())
+    plane = score._plane_inputs(packed, pc, yp, ysum, "highest")
+    assert plane[:3] == (256, 4, 101) and torch.equal(plane[3], b)
+    assert torch.equal(plane[4], ys)
 
 
 def test_tensor_core_wrappers_have_no_cpu_kernel_path():
@@ -338,8 +455,32 @@ def test_tensor_core_wrappers_have_no_cpu_kernel_path():
     for a, b in zip(got, score.parity_plain(*args, th, tile_rows=128, w=8,
                                             **kw)):
         assert torch.equal(a, b)
+    for a, b in zip(score.score_batch_t_bmax(*args, **kw),
+                    score.scores_and_bmax_plain(*args, **kw)):
+        assert torch.equal(a, b)
+    assert torch.equal(score.score_batch_t(*args, **kw),
+                       score.scores_t_plain(*args, **kw))
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         score.score_batch_t_tilemax(*meta, th.to("meta"), tile_rows=128, **kw)
     with pytest.raises(ValueError, match="no kernel"):
         score.score_batch_t_parity(*meta, th.to("meta"), tile_rows=128, **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        score.score_batch_t_bmax(*meta, **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        score.score_batch_t(*meta, **kw)
+
+
+def test_plane_stores_tool_is_card_only():
+    """tools/plane_stores.py times the two store epilogues of the card's
+    kernel: on the CPU it refuses, and its batch is what it says (bits past
+    N clear, popcounts of the planes, dyadic phenotypes)."""
+    from kmersgwas_tpu_torch.tools import plane_stores
+    with pytest.raises(ValueError, match="only on the card"):
+        plane_stores.main(rows=256, n=100, p=3, device="cpu")
+    packed, pc, yp, ysum = plane_stores.make_batch(256, 100, 3, "cpu")
+    bits = bitplanes.unpack_bits(packed, torch.float32)
+    assert packed.shape == (256, 4) and not bits[:, 100:].any()
+    assert torch.equal(pc, bits.sum(dim=1))
+    assert yp.shape == (128, 3) and torch.equal(yp * 8, (yp * 8).round())
+    assert torch.equal(ysum, yp.double().sum(dim=0).float())
