@@ -99,7 +99,6 @@ library call's time, null where no single PyTorch call computes the same
 function); the last line is {"ok": true, "device": {...}}. Without CUDA
 the script fails at once.
 """
-import contextlib
 import json
 import math
 import os
@@ -862,51 +861,14 @@ def device_busy(prof):
 # the threshold's ramp (the first append comes at batch ~45 in `cand_w`
 # mode, ~115-135 in `cand_c`)
 FALLBACK_WINDOW = 5
-RANGE = "smoke::"
-
-
-@contextlib.contextmanager
-def step_ranges():
-    """Name the fallback's pieces for torch.profiler: K2's wrapper call,
-    topk.top_k_from_bmax and scanstep._flush_merge (which calls
-    top_k_from_bmax) run inside record_function ranges RANGE + their
-    names while the block runs. K2's wrapper is named where scanstep
-    reaches it (its `score_ops`), so the wrapper itself, which counts its
-    launches on its own name, is left as it is."""
-    from torch.profiler import record_function
-    from kmersgwas_tpu_torch.ops import scanstep, score, topk
-
-    def named(fn, name):
-        def run(*args, **kw):
-            with record_function(RANGE + name):
-                return fn(*args, **kw)
-        return run
-
-    class ScoreOps:                     # scanstep's view of ops/score.py
-        score_batch_t_bmax = staticmethod(
-            named(score.score_batch_t_bmax, "score_batch_t_bmax"))
-
-        def __getattr__(self, name):
-            return getattr(score, name)
-
-    sites = [(scanstep, "_flush_merge",
-              named(scanstep._flush_merge, "_flush_merge")),
-             (topk, "top_k_from_bmax",
-              named(topk.top_k_from_bmax, "top_k_from_bmax")),
-             (scanstep, "score_ops", ScoreOps())]
-    saved = [getattr(m, a) for m, a, _ in sites]
-    try:
-        for m, a, fn in sites:
-            setattr(m, a, fn)
-        yield
-    finally:
-        for (m, a, _), fn in zip(sites, saved):
-            setattr(m, a, fn)
+# the port names the fallback's pieces with torch.profiler ranges
+# RANGE + function (ops/scanstep.py's docstring)
+RANGE = "kgt::"
 
 
 def range_ms(prof, name):
-    """Device time in ms of the kernels launched inside the smoke's range
-    `name` (step_ranges), summed over the profile: the kernels the
+    """Device time in ms of the kernels launched inside the port's range
+    RANGE + `name`, summed over the profile: the kernels the
     profiler links to the range's host events and their descendants."""
     from torch.autograd import DeviceType
 
@@ -1005,14 +967,14 @@ def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
         ov = v[:, :k].contiguous()
 
     def profiled(bs):
-        """The steps of batches `bs`, back to back under torch.profiler with
-        K2's call, top_k_from_bmax and _flush_merge in named ranges, then
-        the oracle. -> (profile, branch counts, wall ms)."""
+        """The steps of batches `bs`, back to back under torch.profiler
+        (K2's call, top_k_from_bmax and _flush_merge run in the port's
+        named ranges), then the oracle. -> (profile, branch counts, wall ms)."""
         batches = [batch(b) for b in bs]
         before = dict(counts)
         torch.cuda.synchronize()
-        with step_ranges(), profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA]) as pr:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pr:
             t_prof = time.perf_counter()
             for args in batches:
                 ss.scan_step_compact(state, *args, yp, ysum, **kw)

@@ -28,9 +28,6 @@
 //   bmax (K2): each consumer warp reads its columns from shared memory,
 //     lane l rows 4l to 4l+3 as one float4: a block's maximum is the max of
 //     4 values and 2 xor shuffles; lanes l % 4 == 0 write it.
-// Built with -DKGT_PLANE_FLOAT4, the warps store the scores instead (one
-// warp a column, a float4 a lane): the alternative that
-// tools/plane_stores.py times against the bulk copies.
 //
 // Registers. __launch_bounds__(WG_THREADS, 2), as K1 and K3 have it, let
 // ptxas serialize the 128-column chunk's products (C7512) in this kernel,
@@ -44,12 +41,6 @@
 #include "score_wgmma.cuh"
 
 namespace kgt {
-
-#ifdef KGT_PLANE_FLOAT4
-constexpr bool PLANE_BULK = false;
-#else
-constexpr bool PLANE_BULK = true;
-#endif
 
 template <int N8, bool BMAX>
 __global__ void __maxnreg__(96)
@@ -72,20 +63,16 @@ score_plane_kernel(
     const float* st = reinterpret_cast<const float*>(smem);
     const int nc = min(8 * N8, p - c0);         // the chunk's real columns
     const int t = threadIdx.x;
-    if (PLANE_BULK && t < nc) {
+    if (t < nc) {
         bulk_store(scores + (size_t)(c0 + t) * n_rows + row0, st + t * S_LD,
                    TILE_ROWS * sizeof(float));
         bulk_commit();
     }
-    if (BMAX || !PLANE_BULK) {
+    if (BMAX) {
         const int lane = t & 31;
         for (int c = t >> 5; c < nc; c += WG_CONSUMERS / 32) {
             const float4 v =
                 reinterpret_cast<const float4*>(st + c * S_LD)[lane];
-            if (!PLANE_BULK)
-                reinterpret_cast<float4*>(
-                    scores + (size_t)(c0 + c) * n_rows + row0)[lane] = v;
-            if (!BMAX) continue;
             float m = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
             m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, 1));
             m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, 2));
@@ -94,7 +81,7 @@ score_plane_kernel(
                      + lane / 4] = m;
         }
     }
-    if (PLANE_BULK && t < nc) bulk_wait_read();   // the tile stays till read
+    if (t < nc) bulk_wait_read();   // the tile stays till the copy read it
 }
 
 template <bool BMAX>

@@ -26,6 +26,12 @@ fallback step makes one more, for the exact merge's guards, which depend
 on the fallback's scores. The state is a mutable object and is updated IN
 PLACE (the buffer writes and the flushes replace or overwrite its
 tensors); callers that need an old state copy it first.
+
+A fallback's pieces run inside torch.profiler ranges named
+kgt::<function>: score_ops.score_batch_t_bmax,
+topk_ops.top_k_from_bmax and `_flush_merge` (chip_smoke.py's phase 4 splits
+a fallback step's device time by them). With no profiler running a range
+costs one enter and one exit call on the host.
 """
 from __future__ import annotations
 
@@ -126,6 +132,7 @@ def _clear_buffer(st: BufferedTopKState, rows=slice(None)) -> None:
     st.buf_hi[rows] = 0
 
 
+@torch.profiler.record_function("kgt::_flush_merge")
 def _flush_merge(scores, s_lo, s_hi, buf_v, buf_lo, buf_hi, sc, bmax,
                  row_lo, row_hi, cand_k: int, block: int = 16):
     """Exact wide merge of (state + buffer + this batch's scores) -> new

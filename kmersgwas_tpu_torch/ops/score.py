@@ -560,6 +560,7 @@ def score_batch_t_parity(packed, popcnt, y_padded, y_sum, thresh, *,
 score_batch_t_parity.launches = 0
 
 
+@torch.profiler.record_function("kgt::score_batch_t_bmax")
 def score_batch_t_bmax(packed, popcnt, y_padded, y_sum, *, n_used: int,
                        min_count: int, block: int = 16,
                        precision: str = "default"):

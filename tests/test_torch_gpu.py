@@ -130,10 +130,12 @@ def test_tensor_core_kernels_equal_plain(cuda, p, precision):
 
 
 @pytest.mark.parametrize("precision", ["default", "highest"])
-def test_topw_lists_equal_the_fma_body_selection(cuda, precision):
-    """K1's top-W lists equal the top-W selected from K2's score plane
-    (both on the tensor-core body, K2 through the score-plane epilogue of
-    csrc/score_plane.cu) for the same dyadic batch."""
+def test_topw_lists_equal_the_top_w_of_the_score_plane(cuda, precision):
+    """K1's top-W lists (its tile launch, then its select) equal the plain
+    per-tile top-3 and select applied to K2's score plane for the same
+    dyadic batch: K1's epilogue against the plain one on the same scores
+    (both kernels on the tensor-core body, K2 through the score-plane
+    epilogue of csrc/score_plane.cu)."""
     packed, pc, yp, ysum = batch(8192, 1008, 101, 11, cuda)
     kw = dict(n_used=1008, min_count=5, precision=precision)
     ks, _ = score.score_batch_t_bmax(packed, pc, yp, ysum, **kw)

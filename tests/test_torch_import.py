@@ -30,7 +30,6 @@ def test_port_imports_without_jax_or_a_build():
         "import kmersgwas_tpu_torch.tools.at_scale_stream\n"
         "import kmersgwas_tpu_torch.tools.probes\n"
         "import kmersgwas_tpu_torch.tools.exp_kernel\n"
-        "import kmersgwas_tpu_torch.tools.plane_stores\n"
         "import kmersgwas_tpu_torch.ops.tilereduce\n"
         "import kmersgwas_tpu_torch.native\n"
         "from kmersgwas_tpu_torch.ops import _cuda\n"

@@ -185,6 +185,30 @@ def test_flush_merge_picks_a_tier_per_column(monkeypatch):
     assert not got[2].any()
 
 
+def test_fallback_pieces_run_in_named_profiler_ranges():
+    """A fallback step's pieces (K2's call, top_k_from_bmax, _flush_merge)
+    show in torch.profiler as ranges kgt::<function>, top_k_from_bmax
+    inside _flush_merge: the names chip_smoke.py splits a fallback by. The
+    first batch always falls back (the threshold starts at -inf)."""
+    from torch.profiler import ProfilerActivity, profile
+    y, batches = stream(33, p=3, n_batches=1)
+    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
+    st = scanstep.init_buffered_state(3, 16, buf_cap=24, device="cpu")
+    counts = {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        scanstep.scan_step_compact(st, *port_batch(batches[0]), yp, ysum,
+                                   n_used=N, min_count=MIN_COUNT, cand_k=12,
+                                   tile_rows=16, cand_w=8, cand_q=4,
+                                   counts=counts)
+    assert counts == {"fallback": 1}, counts
+    events = {e.name: e for e in prof.events() if e.name.startswith("kgt::")}
+    assert set(events) == {"kgt::score_batch_t_bmax", "kgt::top_k_from_bmax",
+                           "kgt::_flush_merge"}
+    inner, outer = (events[f"kgt::{n}"].time_range
+                    for n in ("top_k_from_bmax", "_flush_merge"))
+    assert outer.start <= inner.start and inner.end <= outer.end
+
+
 @pytest.mark.parametrize("split", [10, 20])
 def test_jax_midstream_state_continues_in_port(split):
     """A JAX BufferedTopKState taken mid-stream (its cand_w step on the

@@ -470,17 +470,3 @@ def test_tensor_core_wrappers_have_no_cpu_kernel_path():
     with pytest.raises(ValueError, match="no kernel"):
         score.score_batch_t(*meta, **kw)
 
-
-def test_plane_stores_tool_is_card_only():
-    """tools/plane_stores.py times the two store epilogues of the card's
-    kernel: on the CPU it refuses, and its batch is what it says (bits past
-    N clear, popcounts of the planes, dyadic phenotypes)."""
-    from kmersgwas_tpu_torch.tools import plane_stores
-    with pytest.raises(ValueError, match="only on the card"):
-        plane_stores.main(rows=256, n=100, p=3, device="cpu")
-    packed, pc, yp, ysum = plane_stores.make_batch(256, 100, 3, "cpu")
-    bits = bitplanes.unpack_bits(packed, torch.float32)
-    assert packed.shape == (256, 4) and not bits[:, 100:].any()
-    assert torch.equal(pc, bits.sum(dim=1))
-    assert yp.shape == (128, 3) and torch.equal(yp * 8, (yp * 8).round())
-    assert torch.equal(ysum, yp.double().sum(dim=0).float())
