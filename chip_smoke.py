@@ -12,21 +12,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      shapes (P up to 1013, eight column chunks of the tensor-core body) and
      at one flagship batch (R=2,097,152, N=1008, P=101, W=256): K1-K5
      bit-equal on dyadic phenotypes, within a stated tolerance on Gaussian
-     ones at precision "highest", with times. K1 (score_topw), K3
-     (score_tilemax), K2 (score_bmax) and K4 (score_t) run on the
-     tensor-core body (csrc/score_wgmma.cuh), K2 and K4 through the score
-     plane's bulk-copy epilogue (csrc/score_plane.cu); K5 (score_rows)
-     runs on the f32 FMA body (csrc/score_common.cuh). K2's scores equal
-     K1's values at K1's lanes at every shape, and on the flagship at both
-     precisions on Gaussian and dyadic phenotypes. K3 also on batches with
-     runs of equal rows inside tiles (tied 2nd/3rd values), its tiles' top
-     3 equal to K1's list on Gaussian ones; K1's tile and select launches,
-     K2's and K4's kernels apart from their operand build (profiler), and
-     K3, at both precisions, beside a GEMM-only yardstick (a bf16
-     torch.matmul of the pre-unpacked bits, which computes no score); K7
-     (kinship_gram) bit-equal to the plain +-1 Gram at 2^20 rows x
-     N=1008, also at a ragged n_rows (2^20 - 37) with a random tail, with
-     times;
+     ones at precision "highest", with times. Every score kernel runs on
+     the tensor-core body (csrc/score_wgmma.cuh): K1 (score_topw), K3
+     (score_tilemax), and the score plane's three modes
+     (csrc/score_plane.cu): K2 (score_bmax) and K4 (score_t) through its
+     bulk-copy epilogue, K5 (score_rows) through its row-major one. K2's
+     scores equal K1's values at K1's lanes at every shape, and on the
+     flagship at both precisions on Gaussian and dyadic phenotypes; there
+     K5's scores also equal K4's, transposed, with -inf as 0. K3 also on
+     batches with runs of equal rows inside tiles (tied 2nd/3rd values),
+     its tiles' top 3 equal to K1's list on Gaussian ones; K1's tile and
+     select launches, K2's, K4's and K5's kernels apart from their operand
+     build (profiler), and K3, at both precisions, beside a GEMM-only
+     yardstick (a bf16 torch.matmul of the pre-unpacked bits, which
+     computes no score); K7 (kinship_gram) bit-equal to the plain +-1 Gram
+     at 2^20 rows x N=1008, also at a ragged n_rows (2^20 - 37) with a
+     random tail, with times;
   3. the main path, `associate` on the dtable route at its real shape
      (N=1008, P=101, top-10001, 2,000,000-row batches, ~4.2M rows), held
      against a numpy f64 brute force;
@@ -58,8 +59,8 @@ Phases (each prints its own lines; any failure exits non-zero):
  11. the plain scan step `scan_step` (K4 on every batch) at the main
      path's shape, top-10001, cand_k 1250, 14 device-made 2M-row batches
      through both its branches, held against a plain running top-k;
- 12. `score_batch` (K5) on one flagship batch against a numpy f64
-     computation on sampled rows;
+ 12. `score_batch` (K5, the score plane's row-major mode) on one flagship
+     batch against a numpy f64 computation on sampled rows;
  13. K6 (gen_planes) against its plain version at (2^21, 32) for two
      (seed, step) pairs and at a ragged 2^21 - 37 rows: planes and
      popcounts bit-equal, the popcounts equal to a bit count of the
@@ -118,7 +119,7 @@ TOPW_SOURCE = "kmersgwas_tpu_torch/csrc/score_topw.cu"
 BMAX_SOURCE = "kmersgwas_tpu_torch/csrc/score_plane.cu"
 TILEMAX_SOURCE = "kmersgwas_tpu_torch/csrc/score_tilemax.cu"
 SCORE_T_SOURCE = BMAX_SOURCE
-SCORE_ROWS_SOURCE = "kmersgwas_tpu_torch/csrc/score_rows.cu"
+SCORE_ROWS_SOURCE = BMAX_SOURCE
 KINSHIP_SOURCE = "kmersgwas_tpu_torch/csrc/kinship_gram.cu"
 TOPW_REPLACES = "kmersgwas_tpu/ops/score.py:448"
 BMAX_REPLACES = "kmersgwas_tpu/ops/score.py:178"
@@ -222,8 +223,18 @@ def phase_env():
 
 
 # the kernels built on csrc/score_wgmma.cuh's body: K1's tile launch (also
-# K8's), K3, and K2 / K4 (score_plane_kernel<N8, true / false>)
+# K8's), K3, and K4 / K2 / K5 (score_plane_kernel<N8, 0 / 1 / 2>)
 TENSOR_CORE_KERNELS = ("score_topw_tiles", "score_tilemax", "score_plane")
+# score_plane_kernel's MODE for each of its entry points
+# (csrc/score_plane.cu PLANE_T, PLANE_BMAX, PLANE_ROWS)
+PLANE_MODES = {"score_t": 0, "score_bmax": 1, "score_rows": 2}
+
+
+def is_plane_kernel(name, entry):
+    """Whether a profiled kernel's name is score_plane_kernel's instance
+    for `entry`, demangled as score_plane_kernel<N8, MODE>."""
+    return re.search(rf"score_plane_kernel<\d+, {PLANE_MODES[entry]}>",
+                     name) is not None
 
 
 def tensor_core_spills(ptxas_log):
@@ -525,11 +536,13 @@ def k2_equals_k1(ks, kv, kg):
     return torch.equal(ks.gather(1, kg.long())[fin], kv[fin])
 
 
-def check_k2_equals_k1(rows=2_097_152, n=1008, p=101, w=256):
+def check_flagship_equalities(rows=2_097_152, n=1008, p=101, w=256):
     """On the flagship batch, at both precisions, Gaussian and dyadic: K2's
     score at every lane of K1's list (thresh at the 100th score) is K1's
     value, so the fallback merges K1's buffered candidates with K2's
-    rescored batch in one arithmetic."""
+    rescored batch in one arithmetic; and K5's (R, P) scores are K4's (P,
+    R) scores transposed, with -inf (padding rows) as 0, bit for bit (one
+    body, the same column chunks, the unmasked score of the same sums)."""
     import torch
     from kmersgwas_tpu_torch.ops import score
     for gaussian in (False, True):
@@ -545,9 +558,17 @@ def check_k2_equals_k1(rows=2_097_152, n=1008, p=101, w=256):
             tag = f"{'gauss' if gaussian else 'dyadic'} {prec}"
             need(k2_equals_k1(ks, kv, kg), f"flagship {tag}: K2's scores "
                  "differ from K1's values at K1's lanes")
-            log(f"  flagship {tag}: K2's scores equal K1's "
-                f"{int(torch.isfinite(kv).sum())} values at K1's lanes")
             del ks
+            k4 = score.score_batch_t(packed, pc, yp, ysum, **kw)
+            k4 = torch.where(k4 == float("-inf"), 0.0, k4).T.contiguous()
+            k5 = score.score_batch(packed, pc, yp, ysum, **kw)
+            need(torch.equal(k5, k4), f"flagship {tag}: K5 != K4 transposed "
+                 f"(-inf as 0) at {int((k5 != k4).sum())} entries")
+            log(f"  flagship {tag}: K2's scores equal K1's "
+                f"{int(torch.isfinite(kv).sum())} values at K1's lanes; "
+                f"K5's ({rows}, {p}) scores equal K4's transposed, -inf as "
+                "0, bit for bit")
+            del k4, k5
         del packed, pc
         torch.cuda.empty_cache()
 
@@ -581,7 +602,7 @@ def check_kinship_at(rows, n, n_rows, seed, label, timing=False):
 
 
 def time_step_kernels(rows=2_097_152, n=1008, p=101, w=256):
-    """K1 (its tile and select launches apart), K3, and K2 and K4 (their
+    """K1 (its tile and select launches apart), K3, and K2, K4 and K5 (their
     kernels apart from the wrappers' operand build) on one flagship batch
     at both precisions; the same at N=100 ("default"), whose k loop is 2
     ring stages against 16, so the difference is the k loop's share of the
@@ -612,30 +633,34 @@ def time_step_kernels(rows=2_097_152, n=1008, p=101, w=256):
 
             def k4():
                 return score.score_batch_t(*args[:4], precision=prec, **kw)
+
+            def k5():
+                return score.score_batch(*args[:4], precision=prec, **kw)
             t_k1 = cuda_ms(k1)
             t_k3 = cuda_ms(lambda: score.score_batch_t_tilemax(
                 *args, tile_rows=128, precision=prec, **kw))
-            t_k2, t_k4 = cuda_ms(k2), cuda_ms(k4)
+            t_k2, t_k4, t_k5 = cuda_ms(k2), cuda_ms(k4), cuda_ms(k5)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for fn in (k1, k2, k4):
+                for fn in (k1, k2, k4, k5):
                     for _ in range(5):
                         fn()
                 torch.cuda.synchronize()
             _, per = device_busy(prof)
 
-            def kernel_ms(*keys):
-                return sum(t for k, t in per.items()
-                           if all(x in k for x in keys)) / 5
-            tile, sel = kernel_ms("score_topw_tiles"), kernel_ms("topw_select")
-            p2 = kernel_ms("score_plane_kernel", "true>")
-            p4 = kernel_ms("score_plane_kernel", "false>")
+            def kernel_ms(key):
+                return sum(t for k, t in per.items() if key(k)) / 5
+            tile = kernel_ms(lambda k: "score_topw_tiles" in k)
+            sel = kernel_ms(lambda k: "topw_select" in k)
+            p2, p4, p5 = (kernel_ms(lambda k, e=e: is_plane_kernel(k, e))
+                          for e in ("score_bmax", "score_t", "score_rows"))
             log(f"{'flagship' if n_s == n else f'N={n_s}'} {prec}: K1 "
                 f"score_topw {t_k1:.3f} ms (tile launch {tile:.3f} ms, "
                 f"select launch {sel:.3f} ms by the profiler), K3 "
                 f"score_tilemax {t_k3:.3f} ms, K2 score_bmax {t_k2:.3f} ms "
                 f"(kernel {p2:.3f} ms by the profiler), K4 score_t "
-                f"{t_k4:.3f} ms (kernel {p4:.3f} ms) (whole calls: median "
+                f"{t_k4:.3f} ms (kernel {p4:.3f} ms), K5 score_rows "
+                f"{t_k5:.3f} ms (kernel {p5:.3f} ms) (whole calls: median "
                 f"CUDA-event times)")
     g = bitplanes.unpack_bits(packed, torch.bfloat16)
     yb = torch.zeros((g.shape[1], -(-p // 8) * 8), dtype=torch.bfloat16,
@@ -670,7 +695,7 @@ def phase_kernels():
         f"plain {times[9]:.3f} ms (median CUDA-event times)")
     log(f"max abs err over all shapes (gaussian, highest): K1 {e[0]:.3g}, "
         f"K2 {e[1]:.3g}, K3 {e[2]:.3g}, K4 {e[3]:.3g}, K5 {e[4]:.3g}")
-    check_k2_equals_k1()
+    check_flagship_equalities()
     time_step_kernels()
     for rows, n, n_rows in ((4096, 100, 4001), (640, 300, 1),
                             (20_000, 1008, 19_963)):
@@ -850,7 +875,7 @@ def device_busy(prof):
     from torch.autograd import DeviceType
     per = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name.startswith(RANGE) \
+        if e.device_type != DeviceType.CUDA or is_range(e.name) \
                 or getattr(e, "is_user_annotation", False):
             continue
         per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -864,6 +889,14 @@ FALLBACK_WINDOW = 5
 # the port names the fallback's pieces with torch.profiler ranges
 # RANGE + function (ops/scanstep.py's docstring)
 RANGE = "kgt::"
+
+
+def is_range(name):
+    """Whether a profiled event is one of the port's ranges, RANGE + a
+    function's name. The demangled names of the port's kernels that are
+    not templates start with RANGE too (kgt::topw_select_kernel(float
+    const*, ...)), but carry their parameter lists."""
+    return re.fullmatch(re.escape(RANGE) + r"\w+", name) is not None
 
 
 def range_ms(prof, name):
@@ -892,7 +925,7 @@ def fallback_split(prof, wall, n_steps, kernel):
     # host event to it: it is found by name, and K2's range holds the
     # PyTorch kernels of its operand build
     k2 = sum(t for nm, t in per.items()
-             if "score_plane_kernel" in nm and "true>" in nm)
+             if is_plane_kernel(nm, "score_bmax"))
     build = range_ms(prof, "score_batch_t_bmax")
     tkb = range_ms(prof, "top_k_from_bmax")
     merge = range_ms(prof, "_flush_merge")

@@ -1,6 +1,6 @@
-// Tensor-core tile body of the scan step's score kernels on Hopper (sm_90a):
+// Tensor-core tile body of the port's score kernels on Hopper (sm_90a):
 // K1's tile launch (score_topw.cu, also run by K8's score_parity.cu), K3
-// (score_tilemax.cu), and K2 and K4 (score_plane.cu).
+// (score_tilemax.cu), and K2, K4 and K5 (score_plane.cu).
 //
 // One block scores one TILE_ROWS-row tile of k-mers against one chunk of NC
 // phenotype columns (NC = 8 * N8 <= 128, a multiple of 8: P = 101 runs as
@@ -8,10 +8,11 @@
 //
 //     yigi[row][c] = sum over samples k of bit[row][k] * y[k][c]
 //
-// on the tensor cores, then writes the tile's f32 scores (score_common.cuh
-// `score_epilogue`, -inf on padding rows) to shared memory, column-major, for
-// the caller's epilogue: per-column reductions (tile_top3.cuh) or the score
-// plane's bulk stores (score_plane.cu).
+// on the tensor cores, then writes the tile's f32 scores to shared memory
+// for the caller's epilogue: column-major with `score_epilogue` (-inf on
+// padding rows) for per-column reductions (tile_top3.cuh) and the score
+// plane's bulk stores (K2, K4), or row-major with `score_value` (no padding
+// mask) for K5's row-major stores (score_plane.cu).
 //
 // Roles. 288 threads: warpgroups 0 and 1 are consumers and own rows 0-63 and
 // 64-127 of the tile; warp 8 is the producer.
@@ -54,9 +55,14 @@
 // kernel with __maxnreg__(96) where the launch bound made ptxas serialize.
 //
 // Shared memory: max(ring, score tile) + the ring's mbarriers. The score
-// tile (NC columns x S_LD floats) reuses the ring once every product is
-// done; its row stride S_LD = 132 makes the accumulator stores and the
-// column reads conflict-free.
+// tile reuses the ring once every product is done. Column-major it is NC
+// columns x S_LD floats; S_LD = 132 makes the accumulator stores and the
+// column reads conflict-free. Row-major it is 128 rows x row_ld(NC) floats,
+// a stride that is an odd multiple of 8: the 8-byte stores of a half-warp
+// (4 rows x 4 column pairs) then cover the 32 banks once, and the
+// epilogue's reads, 32 consecutive floats of a row, are conflict-free (at
+// NC = 128 the tile is 68 KB, under the 96 KB ring budget, so two blocks
+// still fit an SM).
 #pragma once
 
 #include <cstdint>
@@ -71,6 +77,15 @@ constexpr int WG_CONSUMERS = 256;
 constexpr int KC = 64;              // samples per ring stage (2 packed words)
 constexpr int S_LD = TILE_ROWS + 4;
 constexpr int RING_BUDGET = 96 * 1024;
+
+// Row stride of the row-major score tile of nc columns: the smallest odd
+// multiple of 8 that holds them.
+__host__ __device__ constexpr int row_ld(int nc) { return nc | 8; }
+
+// Floats of the score tile of nc columns, row-major (ROWS) or column-major.
+__host__ __device__ constexpr int tile_floats(int nc, bool rows) {
+    return rows ? TILE_ROWS * row_ld(nc) : nc * S_LD;
+}
 
 // --------------------------------------------------------------- wgmma
 // wgmma.mma_async m64n(8*N8)k16, f32 += bf16 x bf16, A from registers, B
@@ -286,13 +301,13 @@ struct WgmmaShape {
     size_t ring_bytes, smem_bytes;
 };
 
-inline WgmmaShape wgmma_shape(int nc, int planes) {
+inline WgmmaShape wgmma_shape(int nc, int planes, bool rows = false) {
     WgmmaShape s;
     s.stage_bytes = (uint32_t)(planes * KC * nc * 2);
     s.stages = (int)(RING_BUDGET / s.stage_bytes);
     s.stages = s.stages < 2 ? 2 : (s.stages > 4 ? 4 : s.stages);
     s.ring_bytes = (size_t)s.stages * s.stage_bytes;
-    const size_t tile = sizeof(float) * nc * S_LD;
+    const size_t tile = sizeof(float) * tile_floats(nc, rows);
     s.smem_bytes = (s.ring_bytes > tile ? s.ring_bytes : tile)
                  + 2 * sizeof(uint64_t) * s.stages;
     return s;
@@ -386,14 +401,19 @@ __device__ __forceinline__ void wgmma_k_loop(
 }
 
 // Scores of the block's tile (rows row0 + [0, 128), columns c0 + [0, NC))
-// into shared memory: st[c * S_LD + r]. Every thread of the block calls
-// this; it returns false in the producer warp, which has nothing more to
-// do, and true in the consumers once the whole tile is in shared memory.
-// `b` holds the chunk's n_kc stages of `shape.stage_bytes`; ysum the
-// chunk's column sums. ASYNC_READ: the caller reads the tile with bulk
-// copies (the async proxy), so each thread fences its tile writes before
-// the closing barrier.
-template <int N8, bool ASYNC_READ = false>
+// into shared memory: st[c * S_LD + r], `score_epilogue`. Every thread of
+// the block calls this; it returns false in the producer warp, which has
+// nothing more to do, and true in the consumers once the whole tile is in
+// shared memory. `b` holds the chunk's n_kc stages of `shape.stage_bytes`;
+// ysum the chunk's column sums. ASYNC_READ: the caller reads the tile with
+// bulk copies (the async proxy), so each thread fences its tile writes
+// before the closing barrier. ROWS (K5): st[r * row_ld(NC) + c],
+// `score_value`. The row-major layout and the unmasked score go together
+// as K5's alone, so one parameter selects both and K1-K4 compile as they
+// did; the mask is left out where the score is computed rather than
+// undone per stored element (score_value is never -inf, so both give the
+// same scores).
+template <int N8, bool ASYNC_READ = false, bool ROWS = false>
 __device__ __forceinline__ bool wgmma_score_tile(
         const uint32_t* __restrict__ packed, const float* __restrict__ popcnt,
         const unsigned char* __restrict__ b, const float* __restrict__ ysum,
@@ -401,7 +421,7 @@ __device__ __forceinline__ bool wgmma_score_tile(
         int stages, uint32_t stage_bytes, size_t ring_bytes,
         unsigned char* smem) {
     const int n_kc = w32 * 32 / KC;
-    const size_t tile_bytes = sizeof(float) * 8 * N8 * S_LD;
+    const size_t tile_bytes = sizeof(float) * tile_floats(8 * N8, ROWS);
     uint64_t* full = reinterpret_cast<uint64_t*>(
         smem + (ring_bytes > tile_bytes ? ring_bytes : tile_bytes));
     uint64_t* empty = full + stages;
@@ -456,6 +476,17 @@ __device__ __forceinline__ bool wgmma_score_tile(
     for (int j = 0; j < N8; ++j) {
         const int c = 8 * j + 2 * tig;
         const float y0 = ysum[c], y1 = ysum[c + 1];
+        if (ROWS) {
+            // columns c and c + 1 of a row are adjacent: one 8-byte store
+            constexpr int LD = row_ld(8 * N8);
+            *reinterpret_cast<float2*>(st + r * LD + c) = make_float2(
+                score_value(acc[4 * j], n1a, y0, n_used, min_count),
+                score_value(acc[4 * j + 1], n1a, y1, n_used, min_count));
+            *reinterpret_cast<float2*>(st + (r + 8) * LD + c) = make_float2(
+                score_value(acc[4 * j + 2], n1b, y0, n_used, min_count),
+                score_value(acc[4 * j + 3], n1b, y1, n_used, min_count));
+            continue;
+        }
         st[c * S_LD + r] = score_epilogue(acc[4 * j], n1a, y0, n_used,
                                           min_count);
         st[(c + 1) * S_LD + r] = score_epilogue(acc[4 * j + 1], n1a, y1,

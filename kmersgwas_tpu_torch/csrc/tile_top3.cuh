@@ -1,14 +1,14 @@
 // Per-(column, tile) top-3 of a scored tile: shared by score_topw.cu (K1's
 // tile launch) and score_tilemax.cu (K3).
 //
-// After score_tile (score_common.cuh), thread (tr = lane, tc = warp) holds
-// s[i][j], the score of row tr + 32*i and column 8*tc + j, so one warp holds
-// all TILE_ROWS rows of its columns. column_top3 reduces one column j of
-// the warp to the tile's three best (score, lane) pairs in the order
-// (score desc, lane asc): the lowest lane wins ties, as the stable sorts of
-// the plain versions order them. Padding rows score -inf and take part like
-// any other lane, so a tile of padding gives (-inf, 0), (-inf, 1),
-// (-inf, 2).
+// After load_column_group (score_wgmma.cuh), lane tr of a warp holds
+// s[i][j], the score of row tr + 32*i and column j of the warp's 8-column
+// group, so one warp holds all TILE_ROWS rows of its columns. column_top3
+// reduces one column j of the warp to the tile's three best (score, lane)
+// pairs in the order (score desc, lane asc): the lowest lane wins ties, as
+// the stable sorts of the plain versions order them. Padding rows score
+// -inf and take part like any other lane, so a tile of padding gives
+// (-inf, 0), (-inf, 1), (-inf, 2).
 #pragma once
 
 #include <climits>

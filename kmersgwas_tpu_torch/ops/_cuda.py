@@ -32,8 +32,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("score_topw.cu", "score_plane.cu", "score_tilemax.cu",
-           "score_rows.cu", "kinship_gram.cu", "gen_planes.cu",
-           "score_parity.cu", "tile_reduce.cu")
+           "kinship_gram.cu", "gen_planes.cu", "score_parity.cu",
+           "tile_reduce.cu")
 HEADERS = ("score_common.cuh", "tile_top3.cuh", "score_topw.cuh",
            "score_wgmma.cuh")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)     # looked at after PATH
@@ -41,19 +41,17 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# block tile of the kernels (csrc/score_common.cuh TILE_ROWS / TILE_COLS):
-# batch rows must be a multiple of TILE_ROWS, and the top-3 captures of
-# score_topw and score_tilemax are per TILE_ROWS-row tile. TILE_COLS is the
-# column chunk of the f32 FMA body, which only score_rows (K5) still runs.
+# rows of the score kernels' block tile (csrc/score_common.cuh TILE_ROWS):
+# batch rows must be a multiple of it, and the top-3 captures of score_topw
+# and score_tilemax are per TILE_ROWS-row tile
 TILE_ROWS = 128
-TILE_COLS = 64
 # column chunks the tensor-core body (csrc/score_wgmma.cuh) is built for
 # (its `dispatch_chunk`): score_topw, score_tilemax, score_parity and
-# score_plane (score_bmax, score_t) run P columns as chunks of one of these
-# widths. The widest is 128, not wgmma's 256: chunks of 192 and 256 columns
-# need more registers than two blocks an SM leave, and at one block an SM
-# they took longer per column than chunks of 128 at two (timed on the
-# card).
+# score_plane (score_bmax, score_t, score_rows) run P columns as chunks of
+# one of these widths. The widest is 128, not wgmma's 256: chunks of 192
+# and 256 columns need more registers than two blocks an SM leave, and at
+# one block an SM they took longer per column than chunks of 128 at two
+# (timed on the card).
 WGMMA_CHUNKS = (8, 16, 32, 64, 104, 128)
 # samples per stage of the tensor-core body's ring (csrc/score_wgmma.cuh KC)
 WGMMA_KC = 64
@@ -136,7 +134,8 @@ def library() -> KernelLib:
         _P, _P, _P,                    # out_v, out_g, out_ok
         _P]                            # stream
     for name, outs in (("kgt_score_bmax", [_P, _P]),   # scores, bmax
-                       ("kgt_score_t", [_P])):          # scores
+                       ("kgt_score_t", [_P]),           # scores
+                       ("kgt_score_rows", [_P])):       # scores
         fn = getattr(lib, name)
         fn.restype = _I
         fn.argtypes = [
@@ -152,12 +151,6 @@ def library() -> KernelLib:
         _I, _I, _I, _F, _F,            # nc, n_cc, planes, n, min_count
         _P, _P, _P, _P, _P, _P,        # tmax, targ, tmax2, targ2, tmax3, targ3
         _P, _P, _P,                    # n2, n3, cnt
-        _P]                            # stream
-    lib.kgt_score_rows.restype = _I
-    lib.kgt_score_rows.argtypes = [
-        _P, _P, _P, _P,                # packed, popcnt, y, ysum
-        _LL, _I, _I, _I, _F, _F,       # n_rows, w32, p, p_pad, n, min_count
-        _P,                            # scores
         _P]                            # stream
     lib.kgt_kinship_gram.restype = _I
     lib.kgt_kinship_gram.argtypes = [

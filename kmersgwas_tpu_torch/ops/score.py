@@ -16,13 +16,13 @@ Precision is explicit and never inherited from torch's global flags:
   "highest" — f32 products, f32 sums;
   "default" — y rounded to bf16, times the exact 0/1 bits, f32 sums (what
               kmersgwas_tpu/ops/score.py:88-106 documents for the TPU).
-The kernels have two bodies. The scan step's kernels (K1 score_topw, K3
-score_tilemax, K8 score_parity through K1's tile launch, and the score
-plane's K2 score_bmax and K4 score_t) run on the tensor cores
-(csrc/score_wgmma.cuh): y goes in as bf16 planes (`bf16_planes`: one at
-"default", three summing to y at "highest") in the kernel's layout
-(`wgmma_operand`). K5 alone keeps the f32 FMA body (csrc/score_common.cuh),
-with y rounded by `gemm_operand` before the launch.
+Every score kernel runs on one body, on the tensor cores
+(csrc/score_wgmma.cuh): the scan step's kernels (K1 score_topw, K3
+score_tilemax, K8 score_parity through K1's tile launch) and the score
+plane's three modes (csrc/score_plane.cu: K2 score_bmax, K4 score_t and
+the row-major K5 score_rows). y goes in as bf16 planes (`bf16_planes`: one
+at "default", three summing to y at "highest") in the kernel's layout
+(`wgmma_operand`).
 
 Each kernel wrapper sends a CPU tensor to the plain version and a CUDA
 tensor to the kernel; there is no other route and no fallback. Each keeps
@@ -329,24 +329,11 @@ def _check_batch(packed, popcnt, y_padded, y_sum):
     return rows, w32, p
 
 
-def _kernel_inputs(packed, popcnt, y_padded, y_sum, precision):
-    """Validate the FMA-body kernel's inputs (score_rows, K5); -> (rows,
-    w32, p, p_pad, y, ysum) with y/ysum zero-padded to its column chunk."""
-    rows, w32, p = _check_batch(packed, popcnt, y_padded, y_sum)
-    dev = packed.device
-    p_pad = -(-p // _cuda.TILE_COLS) * _cuda.TILE_COLS
-    y = torch.zeros((w32 * 32, p_pad), dtype=torch.float32, device=dev)
-    y[:, :p] = gemm_operand(y_padded, precision)
-    ys = torch.zeros(p_pad, dtype=torch.float32, device=dev)
-    ys[:p] = y_sum
-    return rows, w32, p, p_pad, y, ys
-
-
 def _plane_inputs(packed, popcnt, y_padded, y_sum, precision):
     """Validate a tensor-core kernel call's batch; -> (rows, w32, p, b,
     ysum) with b the `wgmma_operand` of the call's column chunk and ysum
     padded with 0 to its n_cc * nc columns. All a score-plane kernel
-    (score_bmax, score_t) takes."""
+    (score_bmax, score_t, score_rows) takes."""
     rows, w32, p = _check_batch(packed, popcnt, y_padded, y_sum)
     nc, _ = column_chunks(p)
     b = wgmma_operand(y_padded, precision, nc)
@@ -384,16 +371,18 @@ def _require_cuda(t: torch.Tensor) -> None:
 
 
 def _plane_kernel(packed, popcnt, y_padded, y_sum, *, n_used: int,
-                  min_count: int, precision: str, with_bmax: bool):
-    """Launch kgt_score_bmax (with_bmax) or kgt_score_t (csrc/score_plane.cu)
-    -> ((P, R) scores, (P, R/16) block maxima or None)."""
+                  min_count: int, precision: str, entry: str):
+    """Launch one mode of csrc/score_plane.cu: kgt_score_bmax -> ((P, R)
+    scores, (P, R/16) block maxima); kgt_score_t -> ((P, R) scores, None);
+    kgt_score_rows -> ((R, P) scores, None)."""
     rows, w32, p, b, ys = _plane_inputs(packed, popcnt, y_padded, y_sum,
                                         precision)
     dev = packed.device
-    scores = torch.empty((p, rows), dtype=torch.float32, device=dev)
+    shape = (rows, p) if entry == "kgt_score_rows" else (p, rows)
+    scores = torch.empty(shape, dtype=torch.float32, device=dev)
+    with_bmax = entry == "kgt_score_bmax"
     bmax = (torch.empty((p, rows // 16), dtype=torch.float32, device=dev)
             if with_bmax else None)
-    entry = "kgt_score_bmax" if with_bmax else "kgt_score_t"
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = getattr(lib.lib, entry)(
@@ -419,7 +408,7 @@ def score_batch_t(packed, popcnt, y_padded, y_sum, *, n_used: int,
     _require_cuda(packed)
     out, _ = _plane_kernel(packed, popcnt, y_padded, y_sum, n_used=n_used,
                            min_count=min_count, precision=precision,
-                           with_bmax=False)
+                           entry="kgt_score_t")
     score_batch_t.launches += 1
     return out
 
@@ -429,27 +418,20 @@ score_batch_t.launches = 0
 
 def score_batch(packed, popcnt, y_padded, y_sum, *, n_used: int,
                 min_count: int, precision: str = "default"):
-    """Row-major scores (csrc/score_rows.cu, the f32 FMA body; replaces
-    kmersgwas_tpu score_batch_pallas): -> (R, P) f32, 0 where the MAC test
-    fails and no padding mask."""
+    """Row-major scores (csrc/score_plane.cu `kgt_score_rows`, on the
+    tensor-core body; replaces kmersgwas_tpu score_batch_pallas): -> (R, P)
+    f32, 0 where the MAC test fails and no padding mask. At the same P the
+    scores are score_batch_t's, transposed, with -inf as 0. On the card,
+    the shapes `_plane_inputs` takes."""
     if packed.device.type == "cpu":
         return scores_plain(packed, popcnt, y_padded, y_sum, n_used=n_used,
                             min_count=min_count, precision=precision)
     _require_cuda(packed)
-    rows, w32, p, p_pad, y, ys = _kernel_inputs(packed, popcnt, y_padded,
-                                                y_sum, precision)
-    dev = packed.device
-    scores = torch.empty((rows, p), dtype=torch.float32, device=dev)
-    lib = _cuda.library()
-    with torch.cuda.device(dev):
-        rc = lib.lib.kgt_score_rows(
-            packed.data_ptr(), popcnt.data_ptr(), y.data_ptr(),
-            ys.data_ptr(), rows, w32, p, p_pad, float(n_used),
-            float(min_count), scores.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _cuda.check(lib, rc, "score_rows")
+    out, _ = _plane_kernel(packed, popcnt, y_padded, y_sum, n_used=n_used,
+                           min_count=min_count, precision=precision,
+                           entry="kgt_score_rows")
     score_batch.launches += 1
-    return scores
+    return out
 
 
 score_batch.launches = 0
@@ -579,7 +561,7 @@ def score_batch_t_bmax(packed, popcnt, y_padded, y_sum, *, n_used: int,
                          f"got {block}")
     out = _plane_kernel(packed, popcnt, y_padded, y_sum, n_used=n_used,
                         min_count=min_count, precision=precision,
-                        with_bmax=True)
+                        entry="kgt_score_bmax")
     score_batch_t_bmax.launches += 1
     return out
 

@@ -154,16 +154,17 @@ def test_topw_lists_equal_the_top_w_of_the_score_plane(cuda, precision):
 @pytest.mark.parametrize("p", [1, 3, 8, 101, 104, 128, 129, 256, 509, 1013])
 @pytest.mark.parametrize("precision", ["default", "highest"])
 def test_score_plane_kernels_equal_plain(cuda, p, precision):
-    """K2 (scores and contiguous 16-lane block maxima) and K4 (scores), on
-    the tensor-core body with the score-plane epilogue, bit-equal to their
-    plain versions on dyadic phenotypes with padding rows, at every column
-    chunk (P = 1 to 1013: one chunk of 8 to eight of 128), also on a
-    column subset as the fallback passes it (y_padded[:, cols])."""
+    """K2 (scores and contiguous 16-lane block maxima), K4 (scores) and K5
+    (row-major scores, no padding mask), the score plane's three modes on
+    the tensor-core body, bit-equal to their plain versions on dyadic
+    phenotypes with padding rows, at every column chunk (P = 1 to 1013: one
+    chunk of 8 to eight of 128), also on a column subset as the fallback
+    passes it (y_padded[:, cols])."""
     rows, n = 1024, 300
     packed, pc, yp, ysum = batch(rows, n, p, 9 * p, cuda)
     kw = dict(n_used=n, min_count=5, precision=precision)
     launches = (score.score_batch_t_bmax.launches,
-                score.score_batch_t.launches)
+                score.score_batch_t.launches, score.score_batch.launches)
     cols = torch.tensor(sorted({0, p // 3, p // 2, p - 1}), device=cuda)
     for y, ys in ((yp, ysum), (yp[:, cols], ysum[cols])):
         ks, kb = score.score_batch_t_bmax(packed, pc, y, ys, **kw)
@@ -171,8 +172,27 @@ def test_score_plane_kernels_equal_plain(cuda, p, precision):
         assert torch.equal(ks, ps) and torch.equal(kb, pbm)
         assert torch.equal(score.score_batch_t(packed, pc, y, ys, **kw), ps)
         assert bool((ks == float("-inf")).any())
-    assert (score.score_batch_t_bmax.launches,
-            score.score_batch_t.launches) == tuple(x + 2 for x in launches)
+        kr = score.score_batch(packed, pc, y, ys, **kw)
+        assert torch.equal(kr, score.scores_plain(packed, pc, y, ys, **kw))
+        assert bool(torch.isfinite(kr).all())
+    assert (score.score_batch_t_bmax.launches, score.score_batch_t.launches,
+            score.score_batch.launches) == tuple(x + 2 for x in launches)
+
+
+@pytest.mark.parametrize("gaussian", [False, True])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_score_rows_equals_score_t_transposed(cuda, gaussian, precision):
+    """K5 and K4 are two modes of one kernel on one body: K5's (R, P)
+    scores are K4's (P, R) scores transposed, with -inf (padding rows) as
+    0, bit for bit, on Gaussian phenotypes too, at one chunk (P = 101) and
+    at several (P = 257)."""
+    for p in (101, 257):
+        packed, pc, yp, ysum = batch(8192, 1008, p, 15 + p, cuda, gaussian)
+        kw = dict(n_used=1008, min_count=5, precision=precision)
+        k4 = score.score_batch_t(packed, pc, yp, ysum, **kw)
+        k5 = score.score_batch(packed, pc, yp, ysum, **kw)
+        assert bool((k4 == float("-inf")).any())
+        assert torch.equal(k5, torch.where(k4 == float("-inf"), 0.0, k4).T)
 
 
 @pytest.mark.parametrize("gaussian", [False, True])
@@ -276,6 +296,8 @@ def test_kernel_wrappers_refuse_bad_shapes(cuda):
     with pytest.raises(ValueError, match="multiple of 128"):
         score.score_batch_t_bmax(packed[:200].contiguous(), pc[:200], yp,
                                  ysum, **kw)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        score.score_batch(packed[:200].contiguous(), pc[:200], yp, ysum, **kw)
     with pytest.raises(ValueError, match="16-lane"):
         score.score_batch_t_bmax(packed, pc, yp, ysum, block=8, **kw)
     with pytest.raises(ValueError, match="128-row tiles"):

@@ -1,9 +1,10 @@
-"""The tensor-core body of the scan step's score kernels (K1 score_topw, K3
-score_tilemax, K8 score_parity, and the score plane's K2 score_bmax and K4
-score_t; kmersgwas_tpu_torch/csrc/score_wgmma.cuh, score_plane.cu) on the
-CPU: its operand preparation, a torch emulation of its arithmetic and of
-the score plane's epilogue, and the wrappers' refusals. The kernels
-themselves run only on the card (tests/test_torch_gpu.py).
+"""The tensor-core body of the port's score kernels (K1 score_topw, K3
+score_tilemax, K8 score_parity, and the score plane's K2 score_bmax, K4
+score_t and K5 score_rows; kmersgwas_tpu_torch/csrc/score_wgmma.cuh,
+score_plane.cu) on the CPU: its operand preparation, a torch emulation of
+its arithmetic and of the score plane's epilogues (K5's store walk
+included), and the wrappers' refusals. The kernels themselves run only on
+the card (tests/test_torch_gpu.py).
 
 The emulation reads the B operand the way the kernel's descriptors do
 (8x8 core matrices, 128 bytes apart along the samples, 1024 along the
@@ -69,10 +70,9 @@ def jax_args(pb):
             jnp.asarray(pb["yp"]), jnp.asarray(pb["ysum"]))
 
 
-def emulate_scores_t(packed, popcnt, y_padded, y_sum, *, n_used, min_count,
-                     precision):
-    """(P, R) scores as the kernel computes them, from the operand its
-    wrapper builds (`_plane_inputs`)."""
+def emulate_yigi_t(packed, popcnt, y_padded, y_sum, precision):
+    """(n_cc * nc, R) sums as the kernel computes them, from the operand
+    its wrapper builds (`_plane_inputs`), and the padded column sums."""
     rows, _, p, b, ys = score._plane_inputs(packed, popcnt, y_padded, y_sum,
                                             precision)
     nc, n_cc, planes = score._chunk_args(b)
@@ -96,8 +96,43 @@ def emulate_scores_t(packed, popcnt, y_padded, y_sum, *, n_used, min_count,
                     blk = flat[cc, kc, pl * 64 * nc + ks * 128 + off]
                     acc = acc + a @ blk.permute(1, 3, 0, 2).reshape(16, nc)
         yigi[cc * nc:(cc + 1) * nc] = acc.T
+    return yigi, ys
+
+
+def emulate_scores_t(packed, popcnt, y_padded, y_sum, *, n_used, min_count,
+                     precision):
+    """(P, R) scores as the kernel computes them: the emulated sums and
+    `score_epilogue` (-inf on padding rows)."""
+    yigi, ys = emulate_yigi_t(packed, popcnt, y_padded, y_sum, precision)
     return score.score_epilogue_t(yigi, popcnt, ys, n_used,
-                                  min_count)[:p].contiguous()
+                                  min_count)[:y_padded.shape[1]].contiguous()
+
+
+def emulate_rows(packed, popcnt, y_padded, y_sum, *, n_used, min_count,
+                 precision):
+    """K5's (R, P) scores as score_plane_kernel's row-major mode computes
+    them: the emulated sums and `score_value` (no padding mask), the
+    tile's real columns stored row-major."""
+    yigi, ys = emulate_yigi_t(packed, popcnt, y_padded, y_sum, precision)
+    sc = score.score_epilogue(yigi.T, popcnt, ys, n_used, min_count)
+    return sc[:, :y_padded.shape[1]].contiguous()
+
+
+def rows_store_walk(nc, p, c0, threads=256, tile_rows=128):
+    """The offsets from scores[row0 * P] that each consumer thread of K5's
+    epilogue stores to, in its order (csrc/score_plane.cu PLANE_ROWS: the
+    (row, column) it carries instead of dividing)."""
+    dr, dc = threads // nc, threads % nc
+    walk = []
+    for t in range(threads):
+        r, c, offs = t // nc, t % nc, []
+        for _ in range(t, tile_rows * nc, threads):
+            offs.append(r * p + c0 + c)
+            r, c = r + dr, c + dc
+            if c >= nc:
+                r, c = r + 1, c - nc
+        walk.append(offs)
+    return walk
 
 
 def emulate_plane(args, **kw):
@@ -357,6 +392,80 @@ def test_emulated_plane_on_a_column_subset(gaussian, precision):
         assert_close(got, want, scale)
 
 
+def jax_rows(pb):
+    """The JAX package's score_batch and its Pallas score_batch_pallas in
+    interpret mode (both f32 sums of the f32 y), numpy."""
+    args = jax_args(pb)
+    kw = dict(n_used=pb["n"], min_count=2)
+    xla = np.array(jscore.score_batch(*args, **kw))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.array(jscore.score_batch_pallas(*args, tile_rows=128,
+                                                    **kw))
+    return xla, pallas
+
+
+@pytest.mark.parametrize("p", [1, 3, 8, 101, 257])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_emulated_rows_equal_plain_and_jax(p, precision):
+    """K5 (score_plane_kernel's row-major mode), emulated through the
+    tensor-core arithmetic and `score_value`, on dyadic phenotypes with
+    padding rows: the padding rows score 0, and the scores equal the plain
+    version, the JAX package's score_batch and its Pallas kernel in
+    interpret mode bit for bit, and K4's emulated scores transposed with
+    -inf as 0 (the identity the card checks on the flagship)."""
+    pb = problem(70 + p, p=p)
+    args = torch_args(pb)
+    kw = dict(n_used=pb["n"], min_count=2, precision=precision)
+    sc = emulate_rows(*args, **kw)
+    assert sc.shape == (256, p) and not sc[-9:].any()
+    assert bool(torch.isfinite(sc).all())
+    assert torch.equal(sc, score.scores_plain(*args, **kw))
+    k4 = emulate_scores_t(*args, **kw)
+    assert torch.equal(sc, torch.where(k4 == float("-inf"), 0.0, k4).T)
+    for want in jax_rows(pb):
+        np.testing.assert_array_equal(sc.numpy(), want)
+
+
+@pytest.mark.parametrize("p", [3, 101])
+def test_emulated_rows_highest_gaussian_within_rtol(p):
+    """K5's emulated scores on Gaussian phenotypes at "highest": within
+    RTOL of the plain f32 scores and of the JAX package's (both kernels),
+    column by column, and equal to K4's emulated scores transposed with
+    -inf as 0 bit for bit (one arithmetic)."""
+    pb = problem(80 + p, p=p, gaussian=True)
+    args = torch_args(pb)
+    kw = dict(n_used=pb["n"], min_count=2, precision="highest")
+    sc = emulate_rows(*args, **kw)
+    k4 = emulate_scores_t(*args, **kw)
+    assert torch.equal(sc, torch.where(k4 == float("-inf"), 0.0, k4).T)
+    want = score.scores_plain(*args, **kw)
+    scale = want.abs().amax(dim=0, keepdim=True).T
+    for ref in (want, *map(torch.from_numpy, jax_rows(pb))):
+        assert_close(sc.T, ref.T, scale)
+
+
+@pytest.mark.parametrize("p", [1, 3, 101, 104, 128, 129, 257, 1013])
+def test_rows_store_walks_the_region_once(p):
+    """K5's epilogue stores each chunk's region (rows row0 + [0, 128), its
+    real columns) once: step k of consumer thread t stores element t + 256 k
+    of the region in row-major order, so a warp's 32 stores are 32
+    consecutive elements; where one chunk holds every column the region is
+    one contiguous run of 128 * P floats."""
+    nc_w, n_cc = score.column_chunks(p)
+    for cc in range(n_cc):
+        c0 = cc * nc_w
+        nc = min(nc_w, p - c0)
+        walk = rows_store_walk(nc, p, c0)
+        for t, offs in enumerate(walk):
+            assert offs == [(i // nc) * p + c0 + i % nc
+                            for i in range(t, 128 * nc, 256)]
+        every = sorted(o for offs in walk for o in offs)
+        assert every == sorted(r * p + c0 + c for r in range(128)
+                               for c in range(nc))
+        if n_cc == 1:
+            assert every == list(range(128 * p))
+
+
 # ------------------------------------------------------------ refusals
 
 def good_inputs(rows=256, n_pad=128, p=3):
@@ -460,6 +569,8 @@ def test_tensor_core_wrappers_have_no_cpu_kernel_path():
         assert torch.equal(a, b)
     assert torch.equal(score.score_batch_t(*args, **kw),
                        score.scores_t_plain(*args, **kw))
+    assert torch.equal(score.score_batch(*args, **kw),
+                       score.scores_plain(*args, **kw))
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         score.score_batch_t_tilemax(*meta, th.to("meta"), tile_rows=128, **kw)
@@ -469,4 +580,6 @@ def test_tensor_core_wrappers_have_no_cpu_kernel_path():
         score.score_batch_t_bmax(*meta, **kw)
     with pytest.raises(ValueError, match="no kernel"):
         score.score_batch_t(*meta, **kw)
+    with pytest.raises(ValueError, match="no kernel"):
+        score.score_batch(*meta, **kw)
 
