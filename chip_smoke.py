@@ -25,9 +25,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      select launches, K2's, K4's and K5's kernels apart from their operand
      build (profiler), and K3, at both precisions, beside a GEMM-only
      yardstick (a bf16 torch.matmul of the pre-unpacked bits, which
-     computes no score); K7 (kinship_gram) bit-equal to the plain +-1 Gram
-     at 2^20 rows x N=1008, also at a ragged n_rows (2^20 - 37) with a
-     random tail, with times;
+     computes no score); K7 (kinship_accumulate: the bit transpose, then
+     the int8 wgmma Gram) bit-equal to the plain +-1 Gram at 2^20 rows x
+     N=1008, also at a ragged n_rows (2^20 - 37) with a random tail, its
+     transpose equal to the plain one, with the call's time and each
+     kernel's by the profiler beside a product-only yardstick
+     (torch._int_mm of the unpacked +-1 operand, the full Gram);
   3. the main path, `associate` on the dtable route at its real shape
      (N=1008, P=101, top-10001, 2,000,000-row batches, ~4.2M rows), held
      against a numpy f64 brute force;
@@ -51,7 +54,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      4.2M rows, maf 0.05, 2^20-row batches, K7 on every batch) on both
      routes: equal to the plain accumulator on the card bit for bit, to a
      numpy XNOR count on 64 sampled pairs, and to a run resumed from its
-     mid-stream checkpoint; rows/s and peak device memory;
+     mid-stream checkpoint; rows/s and peak device memory; another run
+     under the profiler (per batch: K7's share of the wall and of the
+     device time, the idle share) and the host feed's rate alone;
   9. `kinship --device cuda` against `--device cpu` on a 200,000-row
      N=200 table: stdout byte-identical;
  10. `kinship-mp` in 2 processes sharing the card against phase 8's
@@ -84,7 +89,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      flagship batch (R=2,097,152, N=1008, P=101, tile 4096, w 128)
      bit-equal to parity_plain on dyadic phenotypes and within RTOL on
      Gaussian ones at "highest"; K6 at every probe generator's shape
-     (2^19-2^23 rows), popcounts on and off, bit-equal to plain; times;
+     (2^19-2^23 rows), popcounts on and off, bit-equal to plain; times
+     (tile_topc's kernel also by the profiler, beside its whole call and
+     torch.sort(stable));
  17. each probe's headline variant through the probe tool, window counts
      cut: K6 on every step, K8 on every step of prof_r5_epi parity4096,
      the step's branch counts; prof_r5_pscale at P=1009 with col_group 128,
@@ -222,9 +229,11 @@ def phase_env():
     return card
 
 
-# the kernels built on csrc/score_wgmma.cuh's body: K1's tile launch (also
-# K8's), K3, and K4 / K2 / K5 (score_plane_kernel<N8, 0 / 1 / 2>)
-TENSOR_CORE_KERNELS = ("score_topw_tiles", "score_tilemax", "score_plane")
+# the kernels on wgmma: csrc/score_wgmma.cuh's body (K1's tile launch,
+# also K8's; K3; K4 / K2 / K5, score_plane_kernel<N8, 0 / 1 / 2>) and K7's
+# int8 Gram (csrc/kinship_gram.cu)
+TENSOR_CORE_KERNELS = ("score_topw_tiles", "score_tilemax", "score_plane",
+                       "kinship_gram")
 # score_plane_kernel's MODE for each of its entry points
 # (csrc/score_plane.cu PLANE_T, PLANE_BMAX, PLANE_ROWS)
 PLANE_MODES = {"score_t": 0, "score_bmax": 1, "score_rows": 2}
@@ -239,7 +248,7 @@ def is_plane_kernel(name, entry):
 
 def tensor_core_spills(ptxas_log):
     """The ptxas lines (-v) that report spills of the tensor-core kernels
-    (csrc/score_wgmma.cuh's body) or products that ptxas serialized."""
+    (TENSOR_CORE_KERNELS) or products that ptxas serialized."""
     bad, kernel = [], ""
     for ln in ptxas_log.splitlines():
         if "Compiling entry function" in ln:
@@ -574,12 +583,16 @@ def check_flagship_equalities(rows=2_097_152, n=1008, p=101, w=256):
 
 
 def check_kinship_at(rows, n, n_rows, seed, label, timing=False):
-    """K7 (kinship_gram) against kinship_gram_plain: the +-1 Gram of rows
-    [0, n_rows) of a (rows, W32) buffer whose tail is random (it must add
-    nothing), added in place onto a non-zero accumulator; integer, so
-    bit-equal. -> (kernel ms, plain ms) for a full buffer, or None."""
+    """K7 (kinship_accumulate: the bit transpose, then the kinship_gram
+    kernel) against kinship_gram_plain: the +-1 Gram of rows [0, n_rows) of
+    a (rows, W32) buffer whose tail is random (it must add nothing), added
+    in place onto a non-zero accumulator; integer, so bit-equal. The
+    transpose alone against transpose_bits_plain. -> for a full buffer,
+    (call ms, plain ms, transpose call ms, transpose plain ms, transpose
+    kernel ms, Gram kernel ms, _int_mm yardstick ms), else None."""
     import torch
-    from kmersgwas_tpu_torch.ops import kinship
+    from torch.profiler import ProfilerActivity, profile
+    from kmersgwas_tpu_torch.ops import bitplanes, kinship
     packed, _ = make_planes(rows, n, seed)
     n_pad = packed.shape[1] * 32
     acc0 = torch.randint(-9, 9, (n_pad, n_pad), dtype=torch.int32,
@@ -591,14 +604,35 @@ def check_kinship_at(rows, n, n_rows, seed, label, timing=False):
     need(torch.equal(acc - acc0, want),
          f"{label}: K7 != plain, {int((acc - acc0 != want).sum())} entries")
     need(torch.equal(want, want.T), f"{label}: plain Gram not symmetric")
-    log(f"  {label}: K7 bit-equal to plain (n_rows {n_rows} of {rows} "
-        f"rows, n_pad {n_pad})")
+    del want
+    bits = kinship.transpose_bits(packed, n_rows)
+    need(torch.equal(bits, kinship.transpose_bits_plain(packed, n_rows)),
+         f"{label}: K7's bit transpose != plain")
+    del bits
+    log(f"  {label}: K7 bit-equal to plain, its transpose too (n_rows "
+        f"{n_rows} of {rows} rows, n_pad {n_pad})")
     if not timing:
         return None
     acc.zero_()
-    return (cuda_ms(lambda: kinship.kinship_accumulate(acc, packed, rows)),
-            cuda_ms(lambda: kinship.kinship_gram_plain(packed, rows),
-                    reps=3))
+    t = (cuda_ms(lambda: kinship.kinship_accumulate(acc, packed, rows)),
+         cuda_ms(lambda: kinship.kinship_gram_plain(packed, rows), reps=3),
+         cuda_ms(lambda: kinship.transpose_bits(packed, rows)),
+         cuda_ms(lambda: kinship.transpose_bits_plain(packed, rows), reps=3))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kinship.kinship_accumulate(acc, packed, rows)
+        torch.cuda.synchronize()
+    _, per = device_busy(prof)
+    tk = [sum(ms for k, ms in per.items() if name in k) / 5
+          for name in ("kinship_transpose_kernel", "kinship_gram_kernel")]
+    # product-only yardstick: the full Gram of the +-1 operand unpacked
+    # beforehand (not K7's function: no unpack, no triangle, no row mask)
+    a = bitplanes.unpack_bits_pm1(packed)
+    t_mm = cuda_ms(lambda: torch._int_mm(a.T, a))
+    del a
+    torch.cuda.empty_cache()
+    return t + tuple(tk) + (t_mm,)
 
 
 def time_step_kernels(rows=2_097_152, n=1008, p=101, w=256):
@@ -706,9 +740,15 @@ def phase_kernels():
     kt = check_kinship_at(1 << 20, 1008, 1 << 20, seed=8,
                           label="flagship", timing=True)
     ops = 2 * (1 << 20) * 1024 * 1024
-    log(f"flagship K7 kinship_gram (2^20 rows, n_pad 1024): kernel "
-        f"{kt[0]:.3f} ms ({ops / kt[0] / 1e9:.1f} T int8 op/s of the full "
-        f"Gram), plain {kt[1]:.3f} ms (median CUDA-event times)")
+    log(f"flagship K7 kinship_accumulate (2^20 rows, n_pad 1024): whole "
+        f"call {kt[0]:.3f} ms ({ops / kt[0] / 1e9:.1f} T int8 op/s of the "
+        f"full Gram), plain {kt[1]:.3f} ms; by the profiler the transpose "
+        f"kernel {kt[4]:.4f} ms and the Gram kernel {kt[5]:.3f} ms; the "
+        f"transpose's call {kt[2]:.4f} ms, plain {kt[3]:.3f} ms (whole "
+        f"calls: median CUDA-event times)")
+    log(f"product-only yardstick: torch._int_mm of the (2^20, 1024) +-1 "
+        f"int8 operand unpacked beforehand, the full Gram: {kt[6]:.3f} ms "
+        f"({ops / kt[6] / 1e9:.1f} T int8 op/s; not K7's function)")
     return dict(errs=e, times=times + kt)
 
 
@@ -880,6 +920,22 @@ def device_busy(prof):
             continue
         per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     return sum(per.values()), per
+
+
+def in_fresh_process(call):
+    """Run `call` (an expression over this module's functions, e.g.
+    "topc_kernel_ms()") in a new Python process and relay its output. The
+    profiler keeps only the device events whose timestamps fall inside its
+    window, and late in this long process the device's timestamps drift out
+    of it (on the card a window around one call lost its kernels as the
+    phases went by, and one around a whole kinship run held none), while a
+    new process's profile holds every event."""
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke as s; s.{call}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for ln in proc.stdout.splitlines():
+        log(ln)
+    need(proc.returncode == 0, f"{call} failed:\n{proc.stderr[-3000:]}")
 
 
 # phase 4's profiled window of fallback steps starts at this batch, in
@@ -1280,6 +1336,7 @@ def phase_kinship(main, workdir, batch=1 << 20, maf=0.05, device="cuda"):
     kw = dict(device=device, maf=maf, batch_size=batch)
     marks = []
     kin_ops.kinship_accumulate.launches = 0
+    kin_ops.transpose_bits.launches = 0
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1304,6 +1361,10 @@ def phase_kinship(main, workdir, batch=1 << 20, maf=0.05, device="cuda"):
          f"kinship: K7 launched {launches} times for {n_batches} batches")
     need(K.shape == (n, n) and bool(np.isfinite(K).all()),
          f"kinship: matrix {K.shape}")
+    transposes = kin_ops.transpose_bits.launches
+    if cuda:
+        in_fresh_process(f"kinship_split({base!r}, {main['dtable']!r}, "
+                         f"{kw!r}, {n_rows / (marks[-1] - t0)!r})")
     # the plain accumulator on the same device, batch by batch
     t0 = time.perf_counter()
     dt = dt_mod.DTableReader(main["dtable"])
@@ -1364,7 +1425,62 @@ def phase_kinship(main, workdir, batch=1 << 20, maf=0.05, device="cuda"):
     need(np.array_equal(K_res, K), "kinship: the resumed matrix differs")
     log(f"kinship: interrupted after 3 batches, resumed from the checkpoint "
         f"of batch 2 over {len(rest)} batches: equal")
-    return dict(k7=launches, K=K)
+    return dict(k7=launches, k7t=transposes, K=K)
+
+
+def kinship_split(base, dtable, kw, path_rate):
+    """What bounds the kinship path (run in a new process, in_fresh_process):
+    kinship_from_table on the dtable route again, all of it under the
+    profiler: the device's time per full batch (the run's K7 kernels,
+    host-to-device copies and the rest, over its full batches) against the
+    wall of a steady batch (the median interval between batches 2 to the
+    last full one), and the idle share they leave; then the host feed
+    alone (kinship_feed on its prefetch thread and the staging copy, as
+    the bench's kinship feed pass, warm cache) against the path's rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kmersgwas_tpu_torch.core import dtable as dt_mod
+    from kmersgwas_tpu_torch.pipeline import feed as feed_mod
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    batch = kw["batch_size"]
+    marks, rows = [], []
+
+    def progress(r):
+        marks.append(time.perf_counter())
+        rows.append(r)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        km.kinship_from_table(base, dtable_cache=dtable, progress=progress,
+                              **kw)
+        torch.cuda.synchronize()
+    n_full = sum(r == batch for r in rows)
+    need(n_full >= 3, f"kinship: {n_full} full batches, the split needs 3")
+    wall = 1e3 * statistics.median(np.diff(marks[:n_full]))
+    busy, per = device_busy(prof)
+    # the run's device time per full batch (a partial batch does less)
+    frac = sum(rows) / batch
+    busy /= frac
+    tr, gram, h2d = (sum(ms for k, ms in per.items() if key in k) / frac
+                     for key in ("kinship_transpose_kernel",
+                                 "kinship_gram_kernel", "Memcpy"))
+    dt = dt_mod.DTableReader(dtable)
+    stage = np.empty((batch, dt.hdr.w32), np.uint32)
+    t0 = time.perf_counter()
+    for _, r, planes in feed_mod._prefetch(feed_mod.kinship_feed(dt, batch),
+                                           depth=2):
+        np.copyto(stage[:r], planes)
+    feed = dt.hdr.n_rows / (time.perf_counter() - t0)
+    need(busy > 0, "kinship: no device time in the trace")
+    idle = 100 * (1 - busy / wall)
+    log(f"kinship: a steady batch (median of batches 2-{n_full}) takes "
+        f"{wall:.2f} ms of wall; the device is busy {busy:.3f} ms of it "
+        f"(idle {idle:.1f} %; the run's profile per 2^20 rows): K7 "
+        f"transpose {tr:.4f} ms + Gram {gram:.3f} ms "
+        f"({100 * (tr + gram) / wall:.1f} % of the wall, "
+        f"{100 * (tr + gram) / busy:.1f} % of the device time), host-to-"
+        f"device copies {h2d:.3f} ms, other {busy - tr - gram - h2d:.3f} ms; "
+        f"the host feed alone (kinship_feed + staging copy, warm) "
+        f"{feed / 1e6:.1f} M rows/s against the path's "
+        f"{path_rate / 1e6:.1f} M rows/s")
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1762,8 +1878,10 @@ def phase_probe_kernels(rows=1 << 21, n=1008, p=101):
                                      stable=True)))
     log(f"K9 tile_reduce (all seven planes, {tuple(x.shape)}): kernel "
         f"{t9[0]:.3f} ms, plain {t9[1]:.3f} ms, torch.max(dim=2) "
-        f"{t9[2]:.3f} ms; tile_topc ({tuple(m1.shape)}): kernel {t9[3]:.3f} "
-        f"ms, plain {t9[4]:.3f} ms, torch.sort(stable) {t9[5]:.3f} ms")
+        f"{t9[2]:.3f} ms; tile_topc ({tuple(m1.shape)}): whole call "
+        f"{t9[3]:.4f} ms, plain {t9[4]:.3f} ms, torch.sort(stable) "
+        f"{t9[5]:.4f} ms (median CUDA-event times)")
+    in_fresh_process("topc_kernel_ms()")
 
     kw = dict(n_used=n, min_count=51, tile_rows=4096, w=128)
     err8, t8 = 0.0, None
@@ -1818,6 +1936,28 @@ def phase_probe_kernels(rows=1 << 21, n=1008, p=101):
                 f"bit-equal to plain, {ms:.3f} ms")
             del out, planes, want, want_pc
     return dict(k9=k9, t9=t9, err8=err8, t8=t8)
+
+
+def topc_kernel_ms():
+    """tile_topc's kernel alone by the profiler (run in a new process,
+    in_fresh_process), 5 launches on the tile maxima of the exp_kernel
+    tool's plane, beside its whole call by CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kmersgwas_tpu_torch.ops import tilereduce as tred
+    from kmersgwas_tpu_torch.tools import exp_kernel as ek
+    x = torch.from_numpy(ek.tie_heavy()).to("cuda")
+    m1 = tred.tile_reduce(x, None, n_tiles=ek.NT, planes=("m1",))["m1"]
+    call = cuda_ms(lambda: tred.tile_topc(m1))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            tred.tile_topc(m1)
+        torch.cuda.synchronize()
+    _, per = device_busy(prof)
+    kern = sum(ms for k, ms in per.items() if "tile_topc_kernel" in k) / 5
+    need(kern > 0, "tile_topc: no kernel in the trace")
+    log(f"K9 tile_topc ({tuple(m1.shape)}): kernel {kern:.4f} ms by the "
+        f"profiler, whole call {call:.4f} ms (CUDA events) in a new process")
 
 
 # ---------------------------------------------------------------- phase 17
@@ -1907,7 +2047,8 @@ def kernel_bounds(peaks, rows=2_097_152, n_used=1008, n_pad=1024, p=101,
     needs, not the padding: K1-K5 one flagship batch, the (R, N) x (N, P)
     score GEMM (bf16 products at precision "default"); K7 2^20 rows into
     the Gram of N samples, whose N (N + 1) / 2 entries on and above the
-    diagonal are all the function needs (int8); K6 one generated batch, no
+    diagonal are all the function needs (int8), its bit transpose the
+    2^20 rows' words read and written once (bytes); K6 one generated batch, no
     operations that a peak counts (bytes: the planes and popcounts it
     writes); K8 one flagship batch, K1's GEMM, its two (P, w) lists and ok
     written; K9 tile_reduce the (104, 128 x 2048) f32 plane read and its
@@ -1933,6 +2074,8 @@ def kernel_bounds(peaks, rows=2_097_152, n_used=1008, n_pad=1024, p=101,
             kin_rows * w32 * f4 + 2 * n_pad * n_pad * f4,
             2.0 * kin_rows * n_used * (n_used + 1) / 2, peaks.int8_ops,
             peaks.hbm_bytes),
+        "kinship_transpose": bound_ms(2 * kin_rows * w32 * f4, 0.0,
+                                      peaks.int8_ops, peaks.hbm_bytes),
         "gen_planes": bound_ms(gen_rows * gen_w32 * f4 + gen_rows * f4, 0.0,
                                peaks.int8_ops, peaks.hbm_bytes),
         "score_parity": score(2 * p * parity_w * 8 + p),
@@ -2012,6 +2155,8 @@ def main():
              bres["k5"], e[4], t[8], t[9]),
             ("kinship_gram", KINSHIP_SOURCE, KINSHIP_REPLACES, kin["k7"],
              0.0, t[10], t[11]),
+            ("kinship_transpose", KINSHIP_SOURCE, KINSHIP_REPLACES,
+             kin["k7t"], 0.0, t[12], t[13]),
             ("gen_planes", GEN_SOURCE, GEN_REPLACES, bench_res["k6"], 0.0,
              *gres["times"]),
             ("score_parity", PARITY_SOURCE, PARITY_REPLACES, k8res["k8"],

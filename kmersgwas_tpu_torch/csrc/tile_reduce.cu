@@ -31,14 +31,20 @@
 // slots that starts at (-inf, 0): the rank of tile t's max is the number of
 // slots holding a value >= it (so the earlier tile stays first on ties),
 // the slots past the rank shift down by one, and a max whose rank is NT
-// (a -inf one) is dropped, as k_topc's :706-714. One warp per column counts
-// the rank by ballots and shifts between two lists in shared memory.
+// (a -inf one) is dropped, as k_topc's :706-714. The result is a stable
+// descending sort of the maxima that are not -inf, padded with (-inf, 0):
+// tile t lands in slot #{s : m_s > m_t} + #{s < t : m_s == m_t}. So the
+// kernel has no chain of inserts: one block per column stages the column
+// in shared memory, each thread counts the rank of one or two tiles and
+// stores its (value, tile) straight to its slot, and the slots past the
+// count of such maxima get (-inf, 0).
 //
 // What bounds them. tile_reduce reads x once (109 MB at P_PAD 104, NT 128,
 // TR 2048: 0.033 ms at 3.35 TB/s) and writes 4 B per plane entry; it is
-// bound by those bytes. tile_topc is a serial chain of NT dependent inserts
-// per column: bound by latency (a ballot and a shared-memory round trip per
-// insert), not by its 53 KB of bytes.
+// bound by those bytes. tile_topc moves 160 KB at the probe's shape and
+// makes NT^2 comparisons per column out of shared memory (16 K at NT 128,
+// one pass of 128 broadcast reads per thread): bound by the launch and one
+// block's latency, not by bytes.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -48,6 +54,8 @@ namespace kgt {
 
 constexpr int kRedWarps = 4;            // warps (tiles) per block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTopcTiles = 2048;        // tile_topc: NT <= 2048
+constexpr int kTopcThreads = 1024;
 
 __device__ __forceinline__ void take_first_max(float& bv, int& bi, float v,
                                                int i) {
@@ -149,49 +157,32 @@ __global__ void __launch_bounds__(32 * kRedWarps) tile_reduce_kernel(
     }
 }
 
-__global__ void __launch_bounds__(32) tile_topc_kernel(
+// One block per column, one or two tiles per thread: tile t's slot is
+// its stable descending rank over the column staged in shared memory.
+__global__ void __launch_bounds__(kTopcThreads) tile_topc_kernel(
         const float* __restrict__ m1, int nt, float* __restrict__ out_v,
         int* __restrict__ out_i) {
-    extern __shared__ __align__(16) float topc_smem[];
-    const int c = blockIdx.x;
-    const int lane = threadIdx.x;
-    float* mcol = topc_smem;
-    float* av = mcol + nt;
-    int* ai = reinterpret_cast<int*>(av + nt);
-    float* bv = reinterpret_cast<float*>(ai + nt);
-    int* bi = reinterpret_cast<int*>(bv + nt);
-    for (int k = lane; k < nt; k += 32) {
-        mcol[k] = m1[(size_t)c * nt + k];
-        av[k] = -CUDART_INF_F;
-        ai[k] = 0;
-    }
-    __syncwarp();
-    for (int t = 0; t < nt; ++t) {
+    __shared__ float mcol[kTopcTiles];
+    const size_t c0 = (size_t)blockIdx.x * nt;
+    for (int k = threadIdx.x; k < nt; k += blockDim.x) mcol[k] = m1[c0 + k];
+    __syncthreads();
+    int n_fin = 0;                      // maxima that are not -inf
+    for (int t = threadIdx.x; t - (int)threadIdx.x < nt; t += blockDim.x) {
+        const bool fin = t < nt && mcol[t] != -CUDART_INF_F;
+        n_fin += __syncthreads_count(fin);
+        if (!fin) continue;
         const float mv = mcol[t];
         int rank = 0;
-        for (int base = 0; base < nt; base += 32) {
-            const int e = base + lane;
-            rank += __popc(__ballot_sync(kFull, e < nt && av[e] >= mv));
+        for (int s = 0; s < nt; ++s) {
+            const float o = mcol[s];
+            rank += (o > mv) | ((o == mv) & (s < t));
         }
-        for (int e = lane; e < nt; e += 32) {
-            if (e < rank) {
-                bv[e] = av[e];
-                bi[e] = ai[e];
-            } else if (e == rank) {
-                bv[e] = mv;
-                bi[e] = t;
-            } else {
-                bv[e] = av[e - 1];
-                bi[e] = ai[e - 1];
-            }
-        }
-        __syncwarp();
-        float* tv = av; av = bv; bv = tv;
-        int* ti = ai; ai = bi; bi = ti;
+        out_v[c0 + rank] = mv;
+        out_i[c0 + rank] = t;
     }
-    for (int k = lane; k < nt; k += 32) {
-        out_v[(size_t)c * nt + k] = av[k];
-        out_i[(size_t)c * nt + k] = ai[k];
+    for (int k = n_fin + threadIdx.x; k < nt; k += blockDim.x) {
+        out_v[c0 + k] = -CUDART_INF_F;
+        out_i[c0 + k] = 0;
     }
 }
 
@@ -225,9 +216,11 @@ extern "C" int kgt_tile_reduce(const float* x, const float* th, int p, int nt,
 extern "C" int kgt_tile_topc(const float* m1, int p, int nt, float* out_v,
                              int* out_i, void* stream) {
     using namespace kgt;
-    if (p <= 0 || nt <= 0 || nt > 2048) return (int)cudaErrorInvalidValue;
-    tile_topc_kernel<<<p, 32, 5 * sizeof(float) * (size_t)nt,
-                       static_cast<cudaStream_t>(stream)>>>(
+    if (p <= 0 || nt <= 0 || nt > kTopcTiles)
+        return (int)cudaErrorInvalidValue;
+    const int threads = nt < kTopcThreads ? (nt + 31) / 32 * 32
+                                          : kTopcThreads;
+    tile_topc_kernel<<<p, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         m1, nt, out_v, out_i);
     return (int)cudaGetLastError();
 }

@@ -35,7 +35,7 @@ SOURCES = ("score_topw.cu", "score_plane.cu", "score_tilemax.cu",
            "kinship_gram.cu", "gen_planes.cu", "score_parity.cu",
            "tile_reduce.cu")
 HEADERS = ("score_common.cuh", "tile_top3.cuh", "score_topw.cuh",
-           "score_wgmma.cuh")
+           "hopper_async.cuh", "score_wgmma.cuh")
 NVCC_CANDIDATES = ("/usr/local/cuda/bin/nvcc",)     # looked at after PATH
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -152,9 +152,14 @@ def library() -> KernelLib:
         _P, _P, _P, _P, _P, _P,        # tmax, targ, tmax2, targ2, tmax3, targ3
         _P, _P, _P,                    # n2, n3, cnt
         _P]                            # stream
+    lib.kgt_kinship_transpose.restype = _I
+    lib.kgt_kinship_transpose.argtypes = [
+        _P, _LL, _I,                   # packed, n_rows, w32
+        _P,                            # bits
+        _P]                            # stream
     lib.kgt_kinship_gram.restype = _I
     lib.kgt_kinship_gram.argtypes = [
-        _P, _LL, _I,                   # packed, n_rows, w32
+        _P, _LL, _I,                   # bits, n_rows, w32
         _P,                            # acc
         _P]                            # stream
     lib.kgt_gen_planes.restype = _I

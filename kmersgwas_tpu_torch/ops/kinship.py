@@ -13,9 +13,11 @@ Padded sample lanes (0 bits, so -1) touch only padded rows and columns of
 the Gram, which the accumulator slices away.
 
 `kinship_accumulate` sends a CPU tensor to the plain version and a CUDA
-tensor to the kinship_gram kernel (csrc/kinship_gram.cu); there is no
-other route and no fallback. It counts its launches
-(`kinship_accumulate.launches`).
+tensor to the two kernels of csrc/kinship_gram.cu: `transpose_bits` (the
+bit transpose, once per batch: the rows' bits sample-major, 128 rows a
+chunk) and the Gram on int8 `wgmma` over the transposed bits. There is no
+other route and no fallback. Each wrapper counts its calls
+(`kinship_accumulate.launches`, `transpose_bits.launches`).
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ from .bitplanes import unpack_bits_pm1
 # the device int32 partial is flushed into the host int64 total before it
 # could overflow: each row adds at most 1 to any entry
 SPILL_ROWS = 1 << 30
+# rows per chunk of the transposed bits (csrc/kinship_gram.cu KC): one
+# sample's bits of a chunk are 4 words
+CHUNK_ROWS = 128
 
 
 def _gram(a: torch.Tensor) -> torch.Tensor:
@@ -53,12 +58,68 @@ def kinship_gram_plain(packed: torch.Tensor, n_rows: int) -> torch.Tensor:
     return _gram(unpack_bits_pm1(packed[:n_rows]))
 
 
+def _chunks(n_rows: int) -> int:
+    return -(-n_rows // CHUNK_ROWS)
+
+
+def transpose_bits_plain(packed: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The plain version of transpose_bits: out[c, s, q] holds, at bit b,
+    sample s's bit of row c*CHUNK_ROWS + 32q + b (0 for rows >= n_rows)."""
+    w32 = packed.shape[1]
+    n_chunks = _chunks(n_rows)
+    rows = torch.zeros((n_chunks * CHUNK_ROWS, w32), dtype=torch.int32,
+                       device=packed.device)
+    rows[:n_rows] = packed[:n_rows]
+    rows = rows.view(n_chunks, CHUNK_ROWS // 32, 32, w32)
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    out = torch.zeros((n_chunks, CHUNK_ROWS // 32, w32 * 32),
+                      dtype=torch.int32, device=packed.device)
+    for b in range(32):
+        bit = (rows[:, :, b, :, None] >> shifts) & 1
+        out |= bit.reshape(out.shape) << b
+    return out.transpose(1, 2).contiguous()
+
+
+def transpose_bits(packed: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """(R, W32) int32 planes -> (ceil(n_rows / 128), W32 * 32, 4) int32:
+    the bits of rows [0, n_rows), sample-major, 128 rows a chunk (see
+    transpose_bits_plain). A CUDA tensor launches the transpose kernel of
+    csrc/kinship_gram.cu; a CPU tensor takes transpose_bits_plain."""
+    rows, w32 = packed.shape
+    if not 0 <= n_rows <= rows:
+        raise ValueError(f"n_rows ({n_rows}) must be in [0, {rows}]")
+    if packed.device.type == "cpu":
+        return transpose_bits_plain(packed, n_rows)
+    if packed.device.type != "cuda":
+        raise ValueError(f"tensors on {packed.device} have no kernel")
+    if packed.dtype != torch.int32 or not packed.is_contiguous() \
+            or packed.data_ptr() % 16 or w32 % 4:
+        raise ValueError("packed must be a contiguous, 16-byte aligned "
+                         "(R, W32) int32 tensor with W32 a multiple of 4")
+    out = torch.empty((_chunks(n_rows), w32 * 32, CHUNK_ROWS // 32),
+                      dtype=torch.int32, device=packed.device)
+    if n_rows == 0:
+        return out
+    lib = _cuda.library()
+    with torch.cuda.device(packed.device):
+        rc = lib.lib.kgt_kinship_transpose(
+            packed.data_ptr(), n_rows, w32, out.data_ptr(),
+            torch.cuda.current_stream(packed.device).cuda_stream)
+    _cuda.check(lib, rc, "kinship_transpose")
+    transpose_bits.launches += 1
+    return out
+
+
+transpose_bits.launches = 0
+
+
 def kinship_accumulate(acc: torch.Tensor, packed: torch.Tensor,
                        n_rows: int | None = None) -> torch.Tensor:
     """acc (N_pad, N_pad) int32 += A^T A over rows [0, n_rows) of `packed`
     (R, W32) int32 planes (default: all R). Rows past n_rows contribute
     nothing, so a fixed-size staging buffer may carry a stale tail. On the
-    card the kinship_gram kernel adds in place; returns acc."""
+    card the batch's bits are transposed once (transpose_bits) and the
+    kinship_gram kernel adds in place; returns acc."""
     rows, w32 = packed.shape
     n_rows = rows if n_rows is None else int(n_rows)
     if not 0 <= n_rows <= rows:
@@ -83,10 +144,11 @@ def kinship_accumulate(acc: torch.Tensor, packed: torch.Tensor,
     if n_rows == 0:
         return acc
     dev = packed.device
+    bits = transpose_bits(packed, n_rows)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.lib.kgt_kinship_gram(
-            packed.data_ptr(), n_rows, w32, acc.data_ptr(),
+            bits.data_ptr(), n_rows, w32, acc.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc, "kinship_gram")
     kinship_accumulate.launches += 1

@@ -234,11 +234,17 @@ def test_score_t_and_rows_kernels_equal_plain(cuda, rows, n, p, precision):
 @pytest.mark.parametrize("rows,n,n_rows", [(4096, 100, 4096),
                                            (4096, 100, 4001),
                                            (20000, 1008, 19963),
-                                           (640, 300, 1)])
+                                           (640, 300, 1),
+                                           (4096, 1008, 77),
+                                           (1 << 16, 100, (1 << 16) - 5),
+                                           (1 << 17, 1008, (1 << 17) - 99)])
 def test_kinship_kernel_equals_plain(cuda, rows, n, n_rows):
     """K7 adds the exact +-1 Gram of rows [0, n_rows) into acc in place,
     bit-equal to the plain version; the rows past n_rows (random here) add
-    nothing."""
+    nothing. Shapes: n_rows below one 128-row chunk, ragged last chunks,
+    fewer work items than blocks (640 x 300: 6 pairs x 1 chunk), one pair
+    split over every block (n_pad 128, 512 chunks), spans crossing pairs
+    (n_pad 1024, 1024 chunks)."""
     packed, _, _, _ = batch(rows, n, 1, rows + n, cuda)
     packed = packed.clone()
     packed[n_rows:] = torch.randint(-2 ** 31, 2 ** 31, packed[n_rows:].shape,
@@ -253,6 +259,40 @@ def test_kinship_kernel_equals_plain(cuda, rows, n, n_rows):
     assert torch.equal(acc - acc0, want)
     assert torch.equal(want, want.T)
     assert kinship.kinship_accumulate.launches == launches + 1
+
+
+@pytest.mark.parametrize("rows,n,n_rows", [(4096, 1008, 4096),
+                                           (4096, 300, 77),
+                                           (20000, 100, 19963)])
+def test_kinship_transpose_kernel_equals_plain(cuda, rows, n, n_rows):
+    """K7's bit transpose: the bits of rows [0, n_rows) sample-major in
+    128-row chunks, rows past n_rows as 0, equal to its plain version."""
+    packed, _, _, _ = batch(rows, n, 1, rows + 7, cuda)
+    launches = kinship.transpose_bits.launches
+    got = kinship.transpose_bits(packed, n_rows)
+    torch.cuda.synchronize()
+    assert kinship.transpose_bits.launches == launches + 1
+    assert torch.equal(got, kinship.transpose_bits_plain(packed, n_rows))
+
+
+@pytest.mark.parametrize("nt", [1, 128, 2048])
+def test_tile_topc_kernel_equals_plain(cuda, nt):
+    """K9's tile_topc, the stable rank, on columns with ties and -inf
+    maxima (a whole column of them too), equals the chain of inserts."""
+    from kmersgwas_tpu_torch.ops import tilereduce as tred
+    rng = np.random.default_rng(nt)
+    m1 = np.round(rng.normal(size=(6, nt)) * 2).astype(np.float32) \
+        + np.float32(0)
+    m1[rng.random((6, nt)) < 0.2] = -np.inf
+    m1[3] = -np.inf
+    m1[4] = 1.0
+    m1 = torch.from_numpy(m1).to(cuda)
+    launches = tred.tile_topc.launches
+    v, i = tred.tile_topc(m1)
+    torch.cuda.synchronize()
+    assert tred.tile_topc.launches == launches + 1
+    pv, pi = tred.tile_topc_plain(m1)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
 @pytest.mark.parametrize("rows,w32,seed,step", [(4096, 32, 1 << 20, 3),

@@ -101,6 +101,55 @@ def test_tile_topc_is_a_stable_descending_sort():
     assert float(v[0, -1]) == float("-inf") and int(i[0, -1]) == 0
 
 
+def topc_rank(m):
+    """tile_topc's kernel as a rank rule: a maximum that is not -inf lands
+    in slot #{s : m_s > m_t} + #{s < t : m_s == m_t}; the slots past the
+    count of such maxima hold (-inf, 0)."""
+    p, nt = m.shape
+    mt, ms = m[:, :, None], m[:, None, :]
+    earlier = np.arange(nt)[None, :] < np.arange(nt)[:, None]    # s < t
+    rank = (ms > mt).sum(-1) + ((ms == mt) & earlier).sum(-1)
+    v = np.full((p, nt), -np.inf, np.float32)
+    i = np.zeros((p, nt), np.int32)
+    c, t = np.nonzero(m != -np.inf)
+    v[c, rank[c, t]] = m[c, t]
+    i[c, rank[c, t]] = t
+    return v, i
+
+
+def topc_plane(kind):
+    """A (P_PAD, NT * 16) plane whose tile maxima are tie-heavy, carry
+    -inf tiles (also the first tile and a whole column), or are all
+    equal."""
+    x = ek.tie_heavy(P_PAD, NT, 16, seed=11)
+    v = x.reshape(P_PAD, NT, 16)
+    if kind == "neg_inf":
+        rng = np.random.default_rng(5)
+        v[rng.random((P_PAD, NT)) < 0.3] = -np.inf
+        v[:, 0] = -np.inf
+        v[7] = -np.inf
+    elif kind == "all_equal":
+        v[:] = np.float32(2)
+    return x
+
+
+@pytest.mark.parametrize("kind", ["ties", "neg_inf", "all_equal"])
+def test_tile_topc_rank_rule_equals_plain_and_jax(kind):
+    """The parallel stable rank that the tile_topc kernel computes equals
+    k_topc's chain of inserts: the plain version and the JAX kernel in
+    interpret mode."""
+    x = topc_plane(kind)
+    m1 = x.reshape(P_PAD, NT, -1).max(axis=-1)
+    want_v, want_i = topc_rank(m1)
+    jv, ji = jax_outputs(ek.CASES["topc"], x)
+    pv, pi = tred.tile_topc_plain(torch.from_numpy(m1))
+    for v, i in ((jv, ji), (pv.numpy(), pi.numpy())):
+        np.testing.assert_array_equal(v, want_v)
+        np.testing.assert_array_equal(i, want_i)
+    if kind == "neg_inf":
+        assert (want_v[7] == -np.inf).all() and not want_i[7].any()
+
+
 def test_tile_reduce_planes_and_refusals():
     x = torch.tensor([[3., 1., 3., 2., 5., 5., 0., 5.]])
     out = tred.tile_reduce(x, torch.tensor([2.5]), n_tiles=2)
