@@ -7,7 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. environment: the card's name and power limit, CUDA and nvcc versions,
-     the kernels' build from csrc/ (one nvcc per source, in parallel);
+     the kernels' build from csrc/ (one nvcc per source, in parallel), the
+     ptxas lines of every kernel (K6's and K9's instances one line each
+     kernel or float4 count; none may spill or keep a stack frame), and
+     K6's integer floor from the SASS of its built kernel (cuobjdump);
   2. kernels against their plain PyTorch versions on the card, at small
      shapes (P up to 1013, eight column chunks of the tensor-core body) and
      at one flagship batch (R=2,097,152, N=1008, P=101, W=256): K1-K5
@@ -70,7 +73,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      (seed, step) pairs and at a ragged 2^21 - 37 rows: planes and
      popcounts bit-equal, the popcounts equal to a bit count of the
      planes, consecutive steps different, every bit position's density
-     0.5 +- 2e-3; times of both;
+     0.5 +- 2e-3; times of both, and the kernel alone by the profiler
+     (in a new process);
  14. the port's bench, `bench.main()` at its defaults (30 windows of 16
      generated 2^21-row steps after the adaptive ramp; the host feed
      measured on a 4.2M-row synthetic table in the work directory), then
@@ -90,8 +94,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      bit-equal to parity_plain on dyadic phenotypes and within RTOL on
      Gaussian ones at "highest"; K6 at every probe generator's shape
      (2^19-2^23 rows), popcounts on and off, bit-equal to plain; times
-     (tile_topc's kernel also by the profiler, beside its whole call and
-     torch.sort(stable));
+     (tile_reduce's, tile_topc's and K6's kernels at those shapes also by
+     the profiler, in a new process, beside their whole calls; the
+     yardsticks torch.max(dim=2) and torch.sort(stable));
  17. each probe's headline variant through the probe tool, window counts
      cut: K6 on every step, K8 on every step of prof_r5_epi parity4096,
      the step's branch counts; prof_r5_pscale at P=1009 with col_group 128,
@@ -217,16 +222,183 @@ def phase_env():
     log(f"kernels: {os.path.relpath(lib.path, ROOT)} built in "
         f"{lib.build_seconds if lib.build_seconds is not None else 0:.1f} s"
         f" (load {time.perf_counter() - t0:.1f} s)")
+    kernel = ""
     for ln in lib.log.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1]
+        if any(k in kernel for k in REGISTER_KERNELS):
+            continue                    # summed up per instance below
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln \
                 or "wgmma" in ln:
             log("  ptxas: " + ln.strip())
+    table = ptxas_table(lib.log)
+    for line in ptxas_summary(table):
+        log("  ptxas: " + line)
     bad = tensor_core_spills(lib.log)
     need(not bad, "the tensor-core kernels spill or serialize their "
          "products:\n" + "\n".join(bad))
     log(f"tensor-core kernels ({', '.join(TENSOR_CORE_KERNELS)}): no "
         "spills, no serialized products")
-    return card
+    bad = local_memory(table)
+    need(not bad, "the register kernels use local memory:\n"
+         + "\n".join(bad))
+    log(f"register kernels ({', '.join(REGISTER_KERNELS)}): no spills and "
+        "no stack frame in any instance")
+    return dict(card=card, gen_sass=gen_sass(lib))
+
+
+# K6's and K9's kernels hold their work in registers; each has template
+# instances (gen_planes: w32 = 32 or any, popcounts or not; tile_reduce:
+# <float4s a lane, fold, ties, count>), summed up one line per kernel (K6)
+# or per float4 count (K9)
+REGISTER_KERNELS = ("gen_planes", "tile_reduce_kernel")
+
+
+def ptxas_table(ptxas_log):
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "stack"}} from ptxas -v output."""
+    out, kernel = {}, None
+    for ln in ptxas_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            kernel = m.group(1)
+            out.setdefault(kernel, {})
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[kernel].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[kernel]["registers"] = int(m.group(1))
+    return out
+
+
+def local_memory(table):
+    """The instances of the register kernels (REGISTER_KERNELS) whose ptxas
+    lines report spills or a stack frame: local memory, where an array of
+    registers indexed at run time or a spill lands."""
+    return [f"{name}: {info}" for name, info in sorted(table.items())
+            if any(k in name for k in REGISTER_KERNELS)
+            and (info.get("stack", 0) or info.get("spill_stores", 0)
+                 or info.get("spill_loads", 0))]
+
+
+def template_args(mangled):
+    """The integer and bool template arguments of a mangled kernel name,
+    e.g. _ZN3kgt18tile_reduce_kernelILi16ELb1ELi2ELb0EEEv... -> (16, 1, 2,
+    0); () for a kernel that is not a template."""
+    m = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
+    return tuple(int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1))) \
+        if m else ()
+
+
+def ptxas_summary(table):
+    """One line per K6 kernel instance and one per K9 float4 count:
+    registers and spills of each instance."""
+    lines = []
+    for name, info in sorted(table.items()):
+        if "gen_planes" in name:
+            kind = "w32_kernel" if "w32_kernel" in name else "any_kernel"
+            lines.append(
+                f"gen_planes_{kind}<popcount={template_args(name)[0]}>: "
+                f"{info.get('registers')} registers, "
+                f"{info.get('spill_stores')} B spill stores, "
+                f"{info.get('spill_loads')} B spill loads, "
+                f"{info.get('stack')} B stack")
+    by_nv = {}
+    for name, info in table.items():
+        if "tile_reduce_kernel" in name:
+            nv, fold, ties, cnt = template_args(name)
+            by_nv.setdefault(nv, []).append(
+                (fold, ties, cnt, info.get("registers"),
+                 info.get("spill_stores", 0) + info.get("spill_loads", 0)
+                 + info.get("stack", 0)))
+    for nv in sorted(by_nv):
+        lines.append(
+            f"tile_reduce_kernel<NV={nv}, FOLD, TIES, CNT> registers (spill "
+            "and stack B): " + ", ".join(f"<{f},{t},{c}> {r} ({sp})"
+                                         for f, t, c, r, sp
+                                         in sorted(by_nv[nv])))
+    return lines
+
+
+# K6's integer work: instructions per Philox block in the compiled w32 =
+# 32 kernel with popcounts (one trip of its chunk loop makes 8 blocks), and
+# the issue rates that bound them on each SM a clock (Hopper, compute
+# capability 9.0: 64 IMADs, 64 LOP3s, 16 POPCs, 4 warp instructions)
+GEN_BLOCKS_PER_TRIP = 8
+SM_RATES = {"imad": 64, "lop3": 64, "popc": 16, "all": 128}
+
+
+def sass_opcodes(sass, kernel_part):
+    """{opcode class: count} of the first function of cuobjdump -sass
+    output whose name contains kernel_part: "imad" (IMAD*), "lop3",
+    "popc", and "all" (every instruction but NOP)."""
+    counts, inside = {"imad": 0, "lop3": 0, "popc": 0, "all": 0}, False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            if inside:
+                break
+            inside = kernel_part in ln
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                      r"([A-Z][A-Z0-9_]*)", ln) if inside else None
+        if not m or m.group(1) == "NOP":
+            continue
+        op = m.group(1)
+        counts["all"] += 1
+        if op.startswith("IMAD"):
+            counts["imad"] += 1
+        elif op == "LOP3":
+            counts["lop3"] += 1
+        elif op == "POPC":
+            counts["popc"] += 1
+    return counts
+
+
+def int_floor_ms(per_block, n_blocks, sms, clock_hz):
+    """(floor in ms, the class that sets it): the Philox blocks' integer
+    instructions over each class's issue rate on `sms` SMs at clock_hz."""
+    t = {k: per_block[k] * n_blocks / (SM_RATES[k] * sms * clock_hz) * 1e3
+         for k in SM_RATES}
+    worst = max(t, key=t.get)
+    return t[worst], worst
+
+
+def gen_sass(lib):
+    """K6's integer floor at (2^21, 32) from the SASS of the built kernel:
+    -> {"per_block": {class: instructions}, "floor_ms", "floor_by",
+    "sms", "clock_mhz"}."""
+    import torch
+    from kmersgwas_tpu_torch.ops import _cuda
+    tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib.path], capture_output=True,
+                          text=True, timeout=300)
+    need(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-2000:]}")
+    counts = sass_opcodes(sass.stdout, "gen_planes_w32_kernelILb1E")
+    need(counts["all"] > 0, "cuobjdump: no gen_planes_w32_kernel<true>")
+    per_block = {k: v / GEN_BLOCKS_PER_TRIP for k, v in counts.items()}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    need(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    clock_mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor, by = int_floor_ms(per_block, (1 << 21) * 8, sms, clock_mhz * 1e6)
+    log(f"K6 SASS (cuobjdump, gen_planes_w32_kernel<true>, one chunk trip "
+        f"/ {GEN_BLOCKS_PER_TRIP} blocks): per Philox block "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per_block.items())
+        + f"; integer floor at (2^21, 32) {floor:.4f} ms, set by {by} "
+        f"({sms} SMs at {clock_mhz:.0f} MHz)")
+    return dict(per_block=per_block, floor_ms=floor, floor_by=by, sms=sms,
+                clock_mhz=clock_mhz)
 
 
 # the kernels on wgmma: csrc/score_wgmma.cuh's body (K1's tile launch,
@@ -924,7 +1096,7 @@ def device_busy(prof):
 
 def in_fresh_process(call):
     """Run `call` (an expression over this module's functions, e.g.
-    "topc_kernel_ms()") in a new Python process and relay its output. The
+    "probe_kernels_ms()") in a new Python process and relay its output. The
     profiler keeps only the device events whose timestamps fall inside its
     window, and late in this long process the device's timestamps drift out
     of it (on the card a window around one call lost its kernels as the
@@ -1716,7 +1888,79 @@ def phase_gen(rows=1 << 21, w32=32):
                  torch.arange(rows, device=dev), w32, 1, 2), reps=3))
     log(f"K6 gen_planes ({rows}, {w32}): kernel {times[0]:.3f} ms, plain "
         f"{times[1]:.3f} ms (median CUDA-event times)")
+    in_fresh_process(f"gen_kernel_ms([({rows}, {w32}, True)])")
     return dict(times=times, rows=rows, w32=w32)
+
+
+def kernel_ms_in_order(events, jobs, reps):
+    """{label: ms per call} from a profile's device events (name, start,
+    duration in us) of `jobs` (label, name_part) run in turn, `reps` calls
+    each: each job takes the next `reps` kernels whose names hold its
+    name_part, in launch order. Raises where a job finds fewer."""
+    events = sorted(events, key=lambda ev: ev[1])
+    out, i = {}, 0
+    for label, part in jobs:
+        got = []
+        while len(got) < reps and i < len(events):
+            if part in events[i][0]:
+                got.append(events[i][2])
+            i += 1
+        need(len(got) == reps, f"{label}: {len(got)} of {reps} {part} "
+             "kernels in the trace")
+        out[label] = sum(got) / reps / 1e3
+    return out
+
+
+def profiled_ms(jobs, reps=5):
+    """{label: device ms per call} of each job (label, fn, name_part): the
+    kernels whose names hold name_part, by the profiler. One profiler
+    session holds every job, `reps` calls each in turn after a warm-up
+    call of each (on the card, a later session of a process has lost its
+    kernels where the first held them)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _, fn, _ in jobs:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _, fn, _ in jobs:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    events = [(e.name, e.time_range.start, e.time_range.elapsed_us())
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return kernel_ms_in_order(events, [(lb, part) for lb, _, part in jobs],
+                              reps)
+
+
+def gen_jobs(shapes):
+    """profiled_ms's jobs for K6 at each (rows, w32, popcount)."""
+    import torch
+    from kmersgwas_tpu_torch.ops import gen
+    dev = torch.device("cuda")
+
+    def job(rows, w32, pcnt):
+        return (f"K6 gen_planes ({rows}, {w32}) popcount={pcnt}",
+                lambda: gen.gen_planes(rows, w32, 1, 2, dev, popcount=pcnt),
+                "gen_planes_")
+    return [job(*shape) for shape in shapes]
+
+
+def log_kernel_ms(jobs, reps=5):
+    """One line per job: its kernel by the profiler (profiled_ms) beside its
+    whole call by CUDA events (run in a new process, in_fresh_process)."""
+    kern = profiled_ms(jobs, reps)
+    for label, fn, _ in jobs:
+        log(f"{label}: kernel {kern[label]:.4f} ms by the profiler, whole "
+            f"call {cuda_ms(fn):.4f} ms (CUDA events) in a new process")
+
+
+def gen_kernel_ms(shapes):
+    """K6's kernel alone by the profiler at each (rows, w32, popcount) of
+    `shapes`, beside its whole call (run in a new process,
+    in_fresh_process)."""
+    log_kernel_ms(gen_jobs(shapes))
 
 
 # ---------------------------------------------------------------- phase 14
@@ -1881,7 +2125,7 @@ def phase_probe_kernels(rows=1 << 21, n=1008, p=101):
         f"{t9[2]:.3f} ms; tile_topc ({tuple(m1.shape)}): whole call "
         f"{t9[3]:.4f} ms, plain {t9[4]:.3f} ms, torch.sort(stable) "
         f"{t9[5]:.4f} ms (median CUDA-event times)")
-    in_fresh_process("topc_kernel_ms()")
+    in_fresh_process("probe_kernels_ms()")
 
     kw = dict(n_used=n, min_count=51, tile_rows=4096, w=128)
     err8, t8 = 0.0, None
@@ -1938,26 +2182,29 @@ def phase_probe_kernels(rows=1 << 21, n=1008, p=101):
     return dict(k9=k9, t9=t9, err8=err8, t8=t8)
 
 
-def topc_kernel_ms():
-    """tile_topc's kernel alone by the profiler (run in a new process,
-    in_fresh_process), 5 launches on the tile maxima of the exp_kernel
-    tool's plane, beside its whole call by CUDA events."""
+# the probes' generator shapes (K10): (rows, w32, popcount)
+PROBE_GEN_SHAPES = tuple((1 << k, 32, pcnt) for k in range(19, 24)
+                         for pcnt in (True, False))
+
+
+def probe_kernels_ms():
+    """Phase 16's kernels alone by the profiler (run in a new process,
+    in_fresh_process), each beside its whole call by CUDA events:
+    tile_reduce (all seven planes) on the exp_kernel tool's plane, tile_topc
+    on its tile maxima, and K6 at the probes' generator shapes."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from kmersgwas_tpu_torch.ops import tilereduce as tred
     from kmersgwas_tpu_torch.tools import exp_kernel as ek
     x = torch.from_numpy(ek.tie_heavy()).to("cuda")
+    th = torch.zeros(ek.P_PAD, device="cuda")
     m1 = tred.tile_reduce(x, None, n_tiles=ek.NT, planes=("m1",))["m1"]
-    call = cuda_ms(lambda: tred.tile_topc(m1))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            tred.tile_topc(m1)
-        torch.cuda.synchronize()
-    _, per = device_busy(prof)
-    kern = sum(ms for k, ms in per.items() if "tile_topc_kernel" in k) / 5
-    need(kern > 0, "tile_topc: no kernel in the trace")
-    log(f"K9 tile_topc ({tuple(m1.shape)}): kernel {kern:.4f} ms by the "
-        f"profiler, whole call {call:.4f} ms (CUDA events) in a new process")
+    log_kernel_ms([
+        (f"K9 tile_reduce (all seven planes, {tuple(x.shape)})",
+         lambda: tred.tile_reduce(x, th, n_tiles=ek.NT),
+         "tile_reduce_kernel"),
+        (f"K9 tile_topc ({tuple(m1.shape)})", lambda: tred.tile_topc(m1),
+         "tile_topc_kernel"),
+        *gen_jobs(PROBE_GEN_SHAPES)])
 
 
 # ---------------------------------------------------------------- phase 17
@@ -2041,18 +2288,22 @@ def bound_ms(n_bytes, ops, ops_per_s, bytes_per_s):
 
 def kernel_bounds(peaks, rows=2_097_152, n_used=1008, n_pad=1024, p=101,
                   w=256, kin_rows=1 << 20, gen_rows=1 << 21, gen_w32=32,
-                  red_p=104, red_nt=128, red_tr=2048, parity_w=128):
+                  red_p=104, red_nt=128, red_tr=2048, parity_w=128,
+                  gen_int_floor_ms=0.0):
     """Each kernel's bound at the shapes its time was taken at, at the
     card's peaks (`bench.CardPeaks`). Operations count what the function
     needs, not the padding: K1-K5 one flagship batch, the (R, N) x (N, P)
     score GEMM (bf16 products at precision "default"); K7 2^20 rows into
     the Gram of N samples, whose N (N + 1) / 2 entries on and above the
     diagonal are all the function needs (int8), its bit transpose the
-    2^20 rows' words read and written once (bytes); K6 one generated batch, no
-    operations that a peak counts (bytes: the planes and popcounts it
-    writes); K8 one flagship batch, K1's GEMM, its two (P, w) lists and ok
-    written; K9 tile_reduce the (104, 128 x 2048) f32 plane read and its
-    seven (104, 128) planes written, tile_topc the (104, 128) maxima read
+    2^20 rows' words read and written once (bytes); K6 one generated
+    batch: the planes and popcounts it writes, against its integer floor
+    (gen_int_floor_ms, reckoned from the built kernel's SASS by gen_sass:
+    the Philox blocks' IMAD, LOP3 and POPC instructions over their issue
+    rates), "operations" where the floor is the larger; K8 one flagship
+    batch, K1's GEMM, its two (P, w) lists and ok written; K9 tile_reduce
+    the (104, 128 x 2048) f32 plane read and its seven (104, 128) planes
+    written, tile_topc the (104, 128) maxima read
     and the sorted values and indices written: comparisons, which no
     peak counts. Bytes: each input read once, each output written once."""
     w32 = n_pad // 32
@@ -2076,8 +2327,9 @@ def kernel_bounds(peaks, rows=2_097_152, n_used=1008, n_pad=1024, p=101,
             peaks.hbm_bytes),
         "kinship_transpose": bound_ms(2 * kin_rows * w32 * f4, 0.0,
                                       peaks.int8_ops, peaks.hbm_bytes),
-        "gen_planes": bound_ms(gen_rows * gen_w32 * f4 + gen_rows * f4, 0.0,
-                               peaks.int8_ops, peaks.hbm_bytes),
+        "gen_planes": bound_ms(gen_rows * gen_w32 * f4 + gen_rows * f4,
+                               gen_int_floor_ms * 1e-3, 1.0,
+                               peaks.hbm_bytes),
         "score_parity": score(2 * p * parity_w * 8 + p),
         "tile_reduce": bound_ms(
             (red_p * red_nt * red_tr + red_p + 7 * red_p * red_nt) * f4, 0.0,
@@ -2116,7 +2368,7 @@ def main():
     os.makedirs(build, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="smoke_", dir=build)
     try:
-        phase_env()
+        env = phase_env()
         kres = phase_kernels()
         mres = phase_main(workdir)
         phase_stream("cand_w")
@@ -2171,7 +2423,16 @@ def main():
         print(f"FAIL: kernels never launched on their path: {idle}",
               file=sys.stderr)
         return 1
-    bounds = kernel_bounds(peaks, gen_rows=gres["rows"], gen_w32=gres["w32"])
+    bounds = kernel_bounds(peaks, gen_rows=gres["rows"], gen_w32=gres["w32"],
+                           gen_int_floor_ms=env["gen_sass"]["floor_ms"])
+    gen_bytes = kernel_bounds(peaks, gen_rows=gres["rows"],
+                              gen_w32=gres["w32"])["gen_planes"][0]
+    gen_sass_ = env["gen_sass"]
+    log(f"K6 bound at ({gres['rows']}, {gres['w32']}): bytes "
+        f"{gen_bytes:.4f} ms, integer floor {gen_sass_['floor_ms']:.4f} ms "
+        f"from the SASS (set by {gen_sass_['floor_by']}): "
+        f"{bounds['gen_planes'][0]:.4f} ms, set by "
+        f"{bounds['gen_planes'][1]}")
     log(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,

@@ -297,7 +297,13 @@ def test_tile_topc_kernel_equals_plain(cuda, nt):
 
 @pytest.mark.parametrize("rows,w32,seed,step", [(4096, 32, 1 << 20, 3),
                                                ((1 << 16) - 37, 32, 5, 2**40),
-                                               (1000, 12, 9, 2**64 - 1)])
+                                               (1000, 12, 9, 2**64 - 1),
+                                               (1, 32, 3, 1),
+                                               (33, 4, 7, 2**32),
+                                               ((1 << 20) - 37, 64, 11,
+                                                2**32 + 5),
+                                               (4059, 128, 2, 8),
+                                               ((1 << 21) + 5, 32, 1, 2**33)])
 def test_gen_planes_kernel_equals_plain(cuda, rows, w32, seed, step):
     before = gen.gen_planes.launches
     planes, pc = gen.gen_planes(rows, w32, seed, step, cuda)
@@ -410,7 +416,7 @@ def test_distributed_scan_on_card_equals_cpu_and_associate(cuda, tmp_path):
             np.testing.assert_array_equal(got[0][j][0], other[0])
 
 
-@pytest.mark.parametrize("tr", [16, 256, 2048])
+@pytest.mark.parametrize("tr", [4, 16, 256, 2048, 4096])
 def test_tile_reduce_kernels_equal_plain(cuda, tr):
     """K9: every case of the exp_kernel tool, kernel planes bit-equal to
     the plain versions and to the JAX kernels' numpy functions."""
@@ -419,6 +425,54 @@ def test_tile_reduce_kernels_equal_plain(cuda, tr):
     for name in exp_kernel.CASES:
         rec = exp_kernel.run_case(name, x, 32, cuda, timing=False)
         assert rec["equal_plain"] and rec["equal_numpy"], rec
+
+
+# the plane sets of the tile_reduce kernel's instances (FOLD, TIES, CNT)
+REDUCE_PLANE_SETS = [("m1",), ("m1", "cnt"), ("a1",), ("n_eq", "cnt"),
+                     ("m2",), ("a2_sum", "cnt"), ("m1", "a1_fold"),
+                     ("a1_fold", "cnt"), ("a1_fold", "m2"),
+                     ("m1", "a1", "a1_fold", "m2", "a2_sum", "n_eq", "cnt")]
+
+
+def reduce_plane(kind, p, nt, tr, rng):
+    if kind == "ties":
+        x = np.round(rng.normal(size=(p, nt, tr)) * 2) + 0.0
+    elif kind == "all_equal":
+        x = np.repeat(rng.integers(-3, 4, size=(p, nt, 1)), tr, axis=2)
+    elif kind == "signed_zero":
+        x = -np.abs(np.round(rng.normal(size=(p, nt, tr))))
+        x[rng.random((p, nt, tr)) < 0.3] = -0.0
+    else:                               # a single maximum, distinct values
+        x = np.stack([rng.permutation(tr) for _ in range(p * nt)])
+    return torch.from_numpy(x.astype(np.float32).reshape(p, nt * tr))
+
+
+@pytest.mark.parametrize("tr", [4, 16, 128, 256, 2048, 4096])
+def test_tile_reduce_instances_equal_plain(cuda, tr):
+    """Every instance of the tile_reduce kernel (each plane set at each TR)
+    against tile_reduce_plain, on tie-heavy, all-equal, signed-zero and
+    single-maximum planes, with fold_to in {1, 2, 128, TR}."""
+    from kmersgwas_tpu_torch.ops import tilereduce as tred
+    rng = np.random.default_rng(tr)
+    th = torch.tensor([0.5, -1.0, 0.0], device=cuda)
+    launches = tred.tile_reduce.launches
+    n = 0
+    for kind in ("ties", "all_equal", "signed_zero", "single_max"):
+        x = reduce_plane(kind, 3, 7, tr, rng)
+        xd = x.to(cuda)
+        for fold_to in (1, 2, 128, tr):
+            want = tred.tile_reduce_plain(x, th.cpu(), n_tiles=7,
+                                          fold_to=fold_to)
+            for planes in REDUCE_PLANE_SETS:
+                got = tred.tile_reduce(xd, th, n_tiles=7, planes=planes,
+                                       fold_to=fold_to)
+                n += 1
+                assert set(got) == set(planes)
+                for k in planes:
+                    assert torch.equal(got[k].cpu(), want[k]), \
+                        (kind, fold_to, planes, k)
+    torch.cuda.synchronize()
+    assert tred.tile_reduce.launches == launches + n
 
 
 @pytest.mark.parametrize("tile_rows,w", [(128, 8), (512, 128), (4096, 128)])
@@ -440,3 +494,14 @@ def test_gen_planes_without_popcounts(cuda):
     planes, _ = gen.gen_planes(1 << 16, 32, 3, 9, cuda)
     alone = gen.gen_planes(1 << 16, 32, 3, 9, cuda, popcount=False)
     assert torch.equal(planes, alone)
+
+
+@pytest.mark.parametrize("rows,w32,step", [((1 << 16) - 37, 32, 2**32 + 1),
+                                          (33, 12, 4), (999, 64, 2**40)])
+def test_gen_planes_without_popcounts_equal_plain(cuda, rows, w32, step):
+    """popcount=False (its own kernel instance) at ragged rows, w32 != 32
+    and a step whose high word is not 0."""
+    alone = gen.gen_planes(rows, w32, 3, step, cuda, popcount=False)
+    want = gen.gen_planes_plain(torch.arange(rows, device=cuda), w32, 3,
+                                step, popcount=False)
+    assert torch.equal(alone, want)

@@ -57,3 +57,95 @@ def test_plane_kernel_names_select_one_mode(entry, mode):
             assert chip_smoke.is_plane_kernel(name, entry) == (m == mode)
     assert not chip_smoke.is_plane_kernel(
         "void kgt::score_topw_tiles_kernel<13>(unsigned int const*)", entry)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN3kgt21gen_planes_w32_kernelILb1EEEvP5uint4Pfxjjjj' for 'sm_90a'
+ptxas info    : Function properties for _ZN3kgt21gen_planes_w32_kernelILb1EEEvP5uint4Pfxjjjj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 58 registers, used 0 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN3kgt18tile_reduce_kernelILi32ELb1ELi2ELb1EEEvPKfS2_iiiiPfPiS4_S3_S4_S4_S4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN3kgt18tile_reduce_kernelILi32ELb1ELi2ELb1EEEvPKfS2_iiiiPfPiS4_S3_S4_S4_S4_
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN3kgt18tile_reduce_kernelILi1ELb0ELi0ELb0EEEvPKfS2_iiiiPfPiS4_S3_S4_S4_S4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN3kgt18tile_reduce_kernelILi1ELb0ELi0ELb0EEEvPKfS2_iiiiPfPiS4_S3_S4_S4_S4_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 20 registers, used 0 barriers, 416 bytes cmem[0]
+"""
+
+
+def test_ptxas_table_and_summary_of_the_register_kernels():
+    """Phase 1 reads registers, spills and stack frames per kernel
+    instance, names K9's instances by their template arguments, and fails
+    where a register kernel uses local memory."""
+    table = chip_smoke.ptxas_table(PTXAS_LOG)
+    gen = table["_ZN3kgt21gen_planes_w32_kernelILb1EEEvP5uint4Pfxjjjj"]
+    assert gen == dict(registers=58, stack=0, spill_stores=0, spill_loads=0)
+    assert chip_smoke.template_args(
+        "_ZN3kgt18tile_reduce_kernelILi32ELb1ELi2ELb1EEEvPKf") \
+        == (32, 1, 2, 1)
+    assert chip_smoke.template_args("_ZN3kgt16tile_topc_kernelEPKfiPfPi") \
+        == ()
+    lines = chip_smoke.ptxas_summary(table)
+    assert lines[0].startswith("gen_planes_w32_kernel<popcount=1>: 58 "
+                               "registers, 0 B spill stores")
+    assert lines[1].endswith("<0,0,0> 20 (0)")
+    assert lines[2].endswith("<1,2,1> 255 (36)")
+    bad = chip_smoke.local_memory(table)
+    assert len(bad) == 1 and "ILi32ELb1ELi2ELb1E" in bad[0]
+    assert chip_smoke.tensor_core_spills(PTXAS_LOG) == []
+
+
+SASS = """\
+\t\tFunction : _ZN3kgt21gen_planes_w32_kernelILb0EEEvP5uint4Pfxjjjj
+        /*0000*/                   IMAD.WIDE.U32 R2, R3, R4, RZ ;   /* 0x0 */
+\t\tFunction : _ZN3kgt21gen_planes_w32_kernelILb1EEEvP5uint4Pfxjjjj
+        /*0000*/                   LDC R1, c[0x0][0x28] ;           /* 0x0 */
+        /*0010*/                   IMAD.WIDE.U32 R2, R3, R4, RZ ;   /* 0x0 */
+        /*0020*/              @!P0 IMAD.HI.U32 R5, R6, R7, RZ ;     /* 0x0 */
+        /*0030*/                   LOP3.LUT R8, R9, R10, R11, 0x96, !PT ;
+        /*0040*/               @P1 POPC R12, R13 ;                  /* 0x0 */
+        /*0050*/                   NOP ;                            /* 0x0 */
+        /*0060*/                   STG.E.EF.128 desc[UR4][R2.64], R8 ;
+\t\tFunction : _ZN3kgt18tile_reduce_kernelILi1ELb0ELi0ELb0EEEvPKf
+        /*0000*/                   POPC R12, R13 ;                  /* 0x0 */
+"""
+
+
+def test_sass_counts_and_integer_floor():
+    """K6's SASS is counted in the one function asked for, NOP aside, with
+    predicated instructions; the floor is the slowest class over its
+    issue rate."""
+    got = chip_smoke.sass_opcodes(SASS, "gen_planes_w32_kernelILb1E")
+    assert got == {"imad": 2, "lop3": 1, "popc": 1, "all": 6}
+    per_block = {"imad": 40.0, "lop3": 24.0, "popc": 4.0, "all": 70.0}
+    floor, by = chip_smoke.int_floor_ms(per_block, (1 << 21) * 8, 132,
+                                        1.98e9)
+    assert by == "imad"
+    assert floor == pytest.approx(40 * (1 << 24) / (64 * 132 * 1.98e9) * 1e3)
+    floor, by = chip_smoke.int_floor_ms(dict(per_block, popc=20.0), 1, 1,
+                                        1.0)
+    assert by == "popc" and floor == pytest.approx(20 / 16 * 1e3)
+
+
+def test_kernel_ms_in_order_assigns_launches_to_jobs():
+    """One profiler session holds several jobs: each takes the next reps
+    kernels of its name in launch order (two jobs may share a name), other
+    device events are skipped, and a job whose kernels are missing
+    fails."""
+    events = [("gen_planes_w32_kernel<true>", 30, 90.0),
+              ("tile_reduce_kernel<16, 1, 2, 1>", 10, 46.0),
+              ("Memset (Device)", 15, 1.0),
+              ("tile_reduce_kernel<16, 1, 2, 1>", 20, 48.0),
+              ("gen_planes_w32_kernel<true>", 40, 88.0),
+              ("gen_planes_w32_kernel<false>", 50, 80.0),
+              ("gen_planes_w32_kernel<false>", 60, 82.0)]
+    jobs = [("reduce", "tile_reduce_kernel"), ("pc", "gen_planes_"),
+            ("no pc", "gen_planes_")]
+    got = chip_smoke.kernel_ms_in_order(events, jobs, reps=2)
+    assert got == pytest.approx({"reduce": 0.047, "pc": 0.089,
+                                 "no pc": 0.081})
+    with pytest.raises(chip_smoke.PhaseError, match="1 of 2"):
+        chip_smoke.kernel_ms_in_order(events[:6], jobs, reps=2)
