@@ -58,8 +58,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      routes: equal to the plain accumulator on the card bit for bit, to a
      numpy XNOR count on 64 sampled pairs, and to a run resumed from its
      mid-stream checkpoint; rows/s and peak device memory; another run
-     under the profiler (per batch: K7's share of the wall and of the
-     device time, the idle share) and the host feed's rate alone;
+     under the profiler, synchronized at its end (per full batch of that
+     whole run: K7's share of the wall and of the device time, the idle
+     share, which must lie in [0, 100] %; the device's batch ends by CUDA
+     events) and the host feed's rate alone;
   9. `kinship --device cuda` against `--device cpu` on a 200,000-row
      N=200 table: stdout byte-identical;
  10. `kinship-mp` in 2 processes sharing the card against phase 8's
@@ -102,7 +104,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      the step's branch counts; prof_r5_pscale at P=1009 with col_group 128,
      the kept rows of columns 0 and 1008 regenerated alone and re-scored
      in f64 on the phenotypes the GEMM multiplies (bf16 at "default"),
-     within CERTIFY_EPS; the smoke's wall time.
+     within CERTIFY_EPS;
+ 18. the gwas path, `run_gwas` at the flagship on phase 3's table (N=1008,
+     ~4.2M rows, k=31): one Gaussian phenotype with 8 accessions given
+     twice (averaged), 100 permutations, top-10001, 2M-row batches,
+     kinship from the table (K7), the scan (K1, K2) with certify_topk,
+     once with the exact LMM's device32 backend and once with host64
+     (float64 on the card); kinship equal to phase 8's bit for bit, the
+     transform to a numpy Cholesky solve, three columns' top-k to the f64
+     oracle, host64 p-values of 3 x 32 candidates to a scipy oracle,
+     device32 to host64, the thresholds to the order statistic of
+     best_pvals, the pass files to the assoc table; stage seconds of both
+     runs. Then `gwas --device cuda` against `--device cpu` on phase 5's
+     table: artifacts byte-identical, full floats within rtol 1e-9; the
+     smoke's wall time.
 The script writes its inputs itself and imports nothing of the JAX
 package. The bench's and the at-scale stream's JSON lines come on earlier
 lines. The line before the last is the kernels' JSON record (per kernel:
@@ -973,26 +988,32 @@ def write_phenotypes(path, names, accessions, values):
             f.write(acc + "\t" + "\t".join("%g" % v for v in row) + "\n")
 
 
-def oracle_top(base, n, y_cols, keep, k, chunk=1 << 16):
-    """numpy f64 brute force: per column, the top-k table rows by (exact
-    score desc, row asc) among MAC-passing rows, with their scores."""
+def oracle_top(base, n, y_cols, keep, k, chunk=1 << 18, device="cuda"):
+    """f64 brute force: per column, the top-k table rows by (exact score
+    desc, row asc) among MAC-passing rows, with their scores. The bits are
+    unpacked and multiplied by y in float64 with torch on `device` (plain
+    torch, none of the port's code), the top-k merged in numpy."""
+    import torch
     wf = (n + 63) // 64
     raw = np.memmap(base + ".table", dtype="<u8", mode="r",
                     offset=TABLE_HEADER.size).reshape(-1, 1 + wf)
-    y = y_cols.astype(np.float64)
-    ysum = y.sum(axis=0)
+    y = torch.from_numpy(y_cols.astype(np.float64)).to(device)
+    ysum = y.sum(0)
+    shifts = torch.arange(8, dtype=torch.uint8, device=device)
     best = [(np.empty(0), np.empty(0, np.int64))] * y.shape[1]
     for s in range(0, raw.shape[0], chunk):
-        blk = np.ascontiguousarray(raw[s:s + chunk, 1:])
-        bits = np.unpackbits(blk.view(np.uint8), axis=1,
-                             bitorder="little")[:, :n].astype(np.float64)
-        n1 = bits.sum(axis=1)
-        r = n * (bits @ y) - n1[:, None] * ysum[None, :]
-        denom = (n * n1 - n1 * n1)[:, None]
-        with np.errstate(divide="ignore", invalid="ignore"):
-            sc = np.where(denom > 0, r * r / denom, 0.0)
-        rows = np.arange(s, s + len(blk))
-        kk = keep[s:s + len(blk)]
+        blk = torch.from_numpy(np.ascontiguousarray(raw[s:s + chunk, 1:])
+                               .view(np.uint8)).to(device)
+        bits = ((blk[:, :, None] >> shifts) & 1).reshape(
+            blk.shape[0], -1)[:, :n].to(torch.float64)
+        n1 = bits.sum(1, keepdim=True)
+        r = n * (bits @ y) - n1 * ysum
+        denom = n * n1 - n1 * n1
+        sc = torch.where(denom > 0, r * r / denom,
+                         torch.zeros_like(r)).cpu().numpy()
+        del blk, bits
+        rows = np.arange(s, s + sc.shape[0])
+        kk = keep[s:s + sc.shape[0]]
         for j in range(y.shape[1]):
             v = np.concatenate([best[j][0], sc[kk, j]])
             rw = np.concatenate([best[j][1], rows[kk]])
@@ -1063,7 +1084,7 @@ def phase_main(workdir, n_rows=4_200_000, p=101, k=10001, batch=2_000_000,
          f"certified {sum(res.certified or [])}/{p} columns")
     t0 = time.perf_counter()
     check_cols = (0, p // 2, p - 1)
-    best = oracle_top(base, n, y[:, check_cols], keep, k)
+    best = oracle_top(base, n, y[:, check_cols], keep, k, device=device)
     for j, (bv, br) in zip(check_cols, best):
         need(np.array_equal(res.rows[j], br),
              f"column {j}: rows differ from the f64 oracle "
@@ -1600,40 +1621,68 @@ def phase_kinship(main, workdir, batch=1 << 20, maf=0.05, device="cuda"):
     return dict(k7=launches, k7t=transposes, K=K)
 
 
+def kinship_batch_split(wall_ms, busy_ms, per, frac, label):
+    """The device's share of a kinship batch's wall: wall_ms the wall of
+    one full batch, busy_ms and per the profiled run's device time in all
+    and by event name (device_busy), frac the run's full-batch equivalents
+    (a partial batch does less), so busy_ms / frac is one full batch's
+    device time. The device works only inside the wall, so the idle share
+    must lie in [0, 100] %; a share outside it fails the phase."""
+    busy = busy_ms / frac
+    tr, gram, h2d = (sum(ms for k, ms in per.items() if key in k) / frac
+                     for key in ("kinship_transpose_kernel",
+                                 "kinship_gram_kernel", "Memcpy"))
+    idle = 100 * (1 - busy / wall_ms)
+    need(0.0 <= idle <= 100.0,
+         f"kinship: {label}: idle share {idle:.1f} % outside [0, 100] "
+         f"(wall {wall_ms:.3f} ms, device busy {busy:.3f} ms a batch)")
+    return dict(wall=wall_ms, busy=busy, idle=idle, transpose=tr, gram=gram,
+                h2d=h2d)
+
+
 def kinship_split(base, dtable, kw, path_rate):
     """What bounds the kinship path (run in a new process, in_fresh_process):
     kinship_from_table on the dtable route again, all of it under the
-    profiler: the device's time per full batch (the run's K7 kernels,
-    host-to-device copies and the rest, over its full batches) against the
-    wall of a steady batch (the median interval between batches 2 to the
-    last full one), and the idle share they leave; then the host feed
-    alone (kinship_feed on its prefetch thread and the staging copy, as
-    the bench's kinship feed pass, warm cache) against the path's rate."""
+    profiler. A full batch's wall is the whole synchronized run (the
+    call's start to torch.cuda.synchronize() after it, set-up included)
+    over its full-batch equivalents; against it, one full batch's device
+    time (the K7 kernels, host-to-device copies and the rest) and the idle
+    share they leave (kinship_batch_split). Beside it, the median interval
+    between CUDA events recorded after each batch's work (batches 2 to
+    the last full one: when the device finished one batch and the next);
+    the copies of later batches run ahead of a batch's kernels, so that
+    interval is not held against a batch's device time. Then the host
+    feed alone (kinship_feed on its prefetch thread and the staging copy,
+    as the bench's kinship feed pass, warm cache) against the path's
+    rate."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from kmersgwas_tpu_torch.core import dtable as dt_mod
     from kmersgwas_tpu_torch.pipeline import feed as feed_mod
     from kmersgwas_tpu_torch.pipeline import kinship as km
     batch = kw["batch_size"]
-    marks, rows = [], []
+    rows, events = [], []
 
     def progress(r):
-        marks.append(time.perf_counter())
         rows.append(r)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         km.kinship_from_table(base, dtable_cache=dtable, progress=progress,
                               **kw)
         torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
     n_full = sum(r == batch for r in rows)
     need(n_full >= 3, f"kinship: {n_full} full batches, the split needs 3")
-    wall = 1e3 * statistics.median(np.diff(marks[:n_full]))
     busy, per = device_busy(prof)
-    # the run's device time per full batch (a partial batch does less)
+    need(busy > 0, "kinship: no device time in the trace")
     frac = sum(rows) / batch
-    busy /= frac
-    tr, gram, h2d = (sum(ms for k, ms in per.items() if key in k) / frac
-                     for key in ("kinship_transpose_kernel",
-                                 "kinship_gram_kernel", "Memcpy"))
+    sp = kinship_batch_split(1e3 * run_s / frac, busy, per, frac,
+                             "the whole run")
+    ends = statistics.median(events[i - 1].elapsed_time(events[i])
+                             for i in range(1, n_full))
     dt = dt_mod.DTableReader(dtable)
     stage = np.empty((batch, dt.hdr.w32), np.uint32)
     t0 = time.perf_counter()
@@ -1641,17 +1690,19 @@ def kinship_split(base, dtable, kw, path_rate):
                                            depth=2):
         np.copyto(stage[:r], planes)
     feed = dt.hdr.n_rows / (time.perf_counter() - t0)
-    need(busy > 0, "kinship: no device time in the trace")
-    idle = 100 * (1 - busy / wall)
-    log(f"kinship: a steady batch (median of batches 2-{n_full}) takes "
-        f"{wall:.2f} ms of wall; the device is busy {busy:.3f} ms of it "
-        f"(idle {idle:.1f} %; the run's profile per 2^20 rows): K7 "
-        f"transpose {tr:.4f} ms + Gram {gram:.3f} ms "
-        f"({100 * (tr + gram) / wall:.1f} % of the wall, "
-        f"{100 * (tr + gram) / busy:.1f} % of the device time), host-to-"
-        f"device copies {h2d:.3f} ms, other {busy - tr - gram - h2d:.3f} ms; "
-        f"the host feed alone (kinship_feed + staging copy, warm) "
-        f"{feed / 1e6:.1f} M rows/s against the path's "
+    busy = sp["busy"]
+    k7 = sp["transpose"] + sp["gram"]
+    log(f"kinship: the profiled run ({len(rows)} batches) takes "
+        f"{run_s:.3f} s from the call to the synchronize after it, "
+        f"{sp['wall']:.2f} ms of wall per 2^20-row batch (set-up included); "
+        f"the device is busy {busy:.3f} ms a batch (idle {sp['idle']:.1f} "
+        f"%): K7 transpose {sp['transpose']:.4f} ms + Gram {sp['gram']:.3f} "
+        f"ms ({100 * k7 / sp['wall']:.1f} % of the wall, "
+        f"{100 * k7 / busy:.1f} % of the device time), host-to-device "
+        f"copies {sp['h2d']:.3f} ms, other {busy - k7 - sp['h2d']:.3f} ms; "
+        f"the device finished batches 2-{n_full} {ends:.2f} ms apart "
+        f"(median, CUDA events); the host feed alone (kinship_feed + "
+        f"staging copy, warm) {feed / 1e6:.1f} M rows/s against the path's "
         f"{path_rate / 1e6:.1f} M rows/s")
 
 
@@ -2276,6 +2327,404 @@ def phase_probes():
     return dict(k8=k8)
 
 
+# ---------------------------------------------------------------- phase 18
+
+class Capture:
+    """Wraps `module.name` for one run: each call goes through unchanged
+    and its result is kept, in call order."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def wrapper(*a, **k):
+            r = fn(*a, **k)
+            self.calls.append(r)
+            return r
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+GWAS_DUPLICATES = 8
+
+
+def write_gwas_phenotype(path, names, seed):
+    """One Gaussian phenotype over every accession in table order, then a
+    second value for the first GWAS_DUPLICATES accessions, which the
+    pipeline averages -> the averaged values (n,), as average_phenotypes
+    computes them. Values are written in full (repr)."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(size=len(names))
+    extra = rng.normal(size=GWAS_DUPLICATES)
+    with open(path, "w") as f:
+        f.write("accession_id\tphenotype_value\n")
+        for a, v in zip(names + names[:GWAS_DUPLICATES],
+                        np.concatenate([y, extra])):
+            f.write(f"{a}\t{float(v)!r}\n")
+    y[:GWAS_DUPLICATES] = [(0.0 + a + b) / 2 for a, b in
+                           zip(y[:GWAS_DUPLICATES], extra)]
+    return y
+
+
+def ml_lrt_oracle(x, y, d, U, n_grid=64):
+    """scipy float64 oracle of one variant's ML-LRT p-value, independent
+    of the port's closed forms: the profile LL of each model by weighted
+    least squares (lstsq on the rotated, sqrt(1/v)-scaled data) at a given
+    lambda, maximized over log10 lambda in [-5, 5] by a grid and a bounded
+    Brent search (xatol 1e-10) in the grid maximum's bracket."""
+    from scipy.optimize import minimize_scalar
+    from scipy.stats import chi2
+    n = len(y)
+    yt = U.T @ y
+
+    def best(X):
+        Xt = U.T @ X
+
+        def ll(lg):
+            v = 10.0 ** lg * d + 1.0
+            s = 1.0 / np.sqrt(v)
+            beta = np.linalg.lstsq(Xt * s[:, None], yt * s, rcond=None)[0]
+            r = (yt - Xt @ beta) * s
+            return 0.5 * (n * (np.log(n / (2 * np.pi)) - 1.0
+                               - np.log(r @ r)) - np.log(v).sum())
+        grid = np.linspace(-5.0, 5.0, n_grid)
+        lls = [ll(g) for g in grid]
+        i = int(np.argmax(lls))
+        r = minimize_scalar(lambda g: -ll(g), method="bounded",
+                            bounds=(grid[max(i - 1, 0)],
+                                    grid[min(i + 1, n_grid - 1)]),
+                            options={"xatol": 1e-10})
+        return max(-r.fun, lls[i])
+    one = np.ones((n, 1))
+    lrt = 2.0 * (best(np.hstack([one, x[:, None]])) - best(one))
+    return float(chi2.sf(max(lrt, 0.0), 1))
+
+
+def read_table_tsv(path):
+    """A phenotype-style TSV -> (header, accessions, values)."""
+    with open(path) as f:
+        head = f.readline().rstrip("\n").split("\t")
+        rows = [ln.rstrip("\n").split("\t") for ln in f if ln.strip()]
+    return head, [r[0] for r in rows], np.array(
+        [[float(v) for v in r[1:]] for r in rows])
+
+
+def read_assoc(path):
+    """assoc.txt(.gz) -> (rs names, af, l_mle, p_lrt)."""
+    import gzip
+    op = gzip.open if path.endswith(".gz") else open
+    with op(path, "rt") as f:
+        rows = [ln.rstrip("\n").split("\t") for ln in f][1:]
+    return ([r[1] for r in rows],
+            *(np.array([float(r[c]) for r in rows]) for c in (6, 7, 8)))
+
+
+def phase_gwas(main, workdir, kin, k=10001, n_perm=100, batch=2_000_000,
+               device="cuda"):
+    """`run_gwas` at the flagship on phase 3's table (N=1008, ~4.2M rows,
+    k=31): one Gaussian phenotype with GWAS_DUPLICATES accessions given
+    twice, 100 permutations, top-10001, 2M-row batches, kinship from the
+    table (K7) on the dtable route, certify_topk; once with the LMM's
+    device32 backend and once with host64 (float64 on the card). Held to
+    phase 8's kinship, a numpy recomputation of the transform, the f64
+    oracle's top-k, a scipy oracle of the LMM, the order statistic of
+    best_pvals and the pass files' rule. Smaller arguments and
+    device="cpu" rehearse the phase without a card."""
+    import contextlib
+    import scipy.linalg
+    import torch
+    from kmersgwas_tpu_torch.ops import kinship as kin_ops
+    from kmersgwas_tpu_torch.ops import score
+    from kmersgwas_tpu_torch.pipeline import gwas as gwas_mod
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    cuda = device == "cuda"
+    base, names, n = main["base"], main["names"], main["n"]
+    pheno = os.path.join(workdir, "gwas.pheno")
+    y = write_gwas_phenotype(pheno, names, seed=18)
+    counters = (score.score_batch_t_topw, score.score_batch_t_bmax,
+                kin_ops.kinship_accumulate, kin_ops.transpose_bits)
+    launches = [0] * len(counters)
+    runs = {}
+    t_phase = time.perf_counter()
+    for backend in ("device32", "host64"):
+        if os.path.exists(base + ".kinship"):
+            os.remove(base + ".kinship")     # each run computes kinship
+        out = os.path.join(workdir, f"gwas_{backend}")
+        cfg = gwas_mod.GWASConfig(
+            pheno_path=pheno, kmers_table=base, outdir=out,
+            kmer_len=main["kmer_len"], n_kmers=k, n_permutations=n_perm,
+            batch_size=batch, dtable_cache=main["dtable"], device=device,
+            lmm_backend=backend, certify_topk=True)
+        with contextlib.ExitStack() as stack:
+            cap = {name: stack.enter_context(Capture(mod, name))
+                   for mod, name in (
+                       (gwas_mod.transform_mod, "transform_and_permute"),
+                       (gwas_mod.scan_mod, "associate"),
+                       (gwas_mod.lmm_mod, "lmm_scan_columns_packed"))}
+            for c in counters:
+                c.launches = 0
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = gwas_mod.run_gwas(cfg)
+            wall = time.perf_counter() - t0
+            run_launches = [c.launches for c in counters]
+        launches = [a + b for a, b in zip(launches, run_launches)]
+        tr = cap["transform_and_permute"].calls[0]
+        sr = cap["associate"].calls[0]
+        lmm = cap["lmm_scan_columns_packed"].calls
+        p = np.concatenate([r.p_lrt.cpu().numpy().astype(np.float64)
+                            for r in lmm])
+        runs[backend] = dict(res=res, tr=tr, sr=sr, p=p, out=out)
+        log(f"gwas {backend}: wall {wall:.2f} s; stage_seconds "
+            + json.dumps({a: round(b, 3) for a, b in
+                          res.stage_seconds.items()}))
+        log(f"gwas {backend}: K1 {run_launches[0]}, K2 {run_launches[1]}, "
+            f"K7 Gram {run_launches[2]} and transpose {run_launches[3]} "
+            f"launches; {res.n_tested} k-mers tested; h2 "
+            f"{res.heritability:.4f}; thresholds {res.thresholds}; "
+            f"{len(res.pass_5per)} k-mers pass 5 %")
+        need(not cuda or min(run_launches) > 0,
+             f"gwas {backend}: a kernel of the path was not launched: "
+             f"{run_launches}")
+        need(p.shape == (1 + n_perm, k) and bool(np.isfinite(p).all()),
+             f"gwas {backend}: LMM p-values {p.shape}")
+        summary = json.loads(open(os.path.join(out, "summary.json")).read())
+        need(summary["lmm_backend"] == backend,
+             f"gwas: summary.json says {summary['lmm_backend']}")
+        # kinship: phase 8's matrix, bit for bit (the cache holds reprs)
+        K_full = km.read_kinship(base + ".kinship")
+        need(np.array_equal(K_full, kin["K"]),
+             f"gwas {backend}: kinship differs from phase 8's in "
+             f"{int((K_full != kin['K']).sum())} entries")
+        # transform: the averaged phenotype, and V^-1 by a numpy Cholesky
+        K = np.loadtxt(os.path.join(out, "pheno.kinship"), delimiter="\t")
+        need(np.allclose(tr.phenotypes[:, 0], y - y.mean(), rtol=0,
+                         atol=1e-12), "gwas: the averaged phenotype differs")
+        V = tr.vg * K + tr.ve * np.eye(n)
+        want = scipy.linalg.cho_solve((np.linalg.cholesky(V), True),
+                                      tr.phenotypes)
+        rel = np.abs(tr.transformed - want).max() / np.abs(want).max()
+        need(rel <= 1e-10, f"gwas: transform off by {rel:.2e} (relative)")
+        for fname, arr in (("pheno.phenotypes_and_permutations",
+                            tr.phenotypes),
+                           ("pheno.phenotypes_permuted_transformed",
+                            tr.transformed)):
+            head, accs, vals = read_table_tsv(os.path.join(out, fname))
+            # written in %g: 6 significant digits
+            need(head[1:] == tr.names and accs == names
+                 and np.allclose(vals, arr, rtol=1e-5, atol=0),
+                 f"gwas: {fname} differs from the transform's table")
+        log(f"gwas {backend}: kinship equal to phase 8's bit for bit; "
+            f"transform within {rel:.2e} of the numpy Cholesky solve "
+            f"(vg {tr.vg:.6g}, ve {tr.ve:.6g}); written tables within "
+            f"%g's 6 digits")
+        # thresholds: the order statistic of kmers/best_pvals
+        best = {}
+        for ln in open(os.path.join(out, "kmers", "best_pvals")):
+            name, v = ln.split("\t")
+            best[name] = float(v)
+        perm = sorted((best[f"P{i}"] for i in range(1, n_perm + 1)),
+                      reverse=True)
+        for key, q in (("5per", 0.05), ("10per", 0.10)):
+            th = perm[int(n_perm * q) - 1]
+            need(th == res.thresholds[key], f"gwas: threshold {key}")
+            need(open(os.path.join(out, "kmers", f"threshold_{key}")).read()
+                 == f"{th:f}\n", f"gwas: threshold_{key} file")
+        need(best["phenotype_value"] == -math.log10(max(p[0].min(), 1e-300)),
+             "gwas: best_pvals of phenotype_value")
+        # pass files: every k-mer of phenotype_value's assoc table over the
+        # threshold, in its order, with its p-value
+        rs, af, l_mle, p_file = read_assoc(os.path.join(
+            out, "kmers", "output", "phenotype_value.assoc.txt.gz"))
+        need(len(rs) == k and np.allclose(p_file, p[0], rtol=5e-6, atol=0),
+             "gwas: phenotype_value.assoc.txt.gz differs from the LMM")
+        for key in ("5per", "10per"):
+            th = res.thresholds[key]
+            want_lines = [f"{r.rsplit('_', 1)[0]}\t{pv:.6e}\n"
+                          for r, pv in zip(rs, p[0])
+                          if -math.log10(max(pv, 1e-300)) > th]
+            got = open(os.path.join(out, "kmers",
+                                    f"pass_threshold_{key}")).readlines()
+            need(got == want_lines, f"gwas: pass_threshold_{key} differs "
+                 f"({len(got)} lines, {len(want_lines)} expected)")
+        log(f"gwas {backend}: thresholds equal the order statistic of "
+            f"best_pvals; the pass files follow the assoc table")
+    a, b = runs["device32"], runs["host64"]
+    for j in range(1 + n_perm):
+        need(np.array_equal(a["sr"].rows[j], b["sr"].rows[j]),
+             f"gwas: the two runs' candidates differ in column {j}")
+    need(np.array_equal(a["tr"].transformed, b["tr"].transformed),
+         "gwas: the two runs' transforms differ")
+    # the scan's top-k: the f64 oracle's, as phase 3 holds it
+    t0 = time.perf_counter()
+    sr, tr = b["sr"], b["tr"]
+    need(sr.certified is not None and all(sr.certified),
+         f"gwas: certified {sum(sr.certified or [])} columns")
+    cols = (0, n_perm // 2, n_perm)
+    # the scan scores the float32-cast phenotypes (certify re-scores them
+    # in f64), as phase 3's oracle does
+    oracle = oracle_top(base, n, tr.transformed[:, cols].astype(np.float32),
+                        main["keep"], k, device=device)
+    for j, (bv, br) in zip(cols, oracle):
+        need(np.array_equal(sr.rows[j], br),
+             f"gwas: column {j}: rows differ from the f64 oracle")
+        need(np.allclose(sr.scores[j], bv, rtol=1e-12, atol=0),
+             f"gwas: column {j}: scores differ from the f64 oracle")
+    log(f"gwas: columns {list(cols)}: top-{k} rows equal the f64 oracle's "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # host64 against a scipy oracle, 3 columns x 32 candidates
+    t0 = time.perf_counter()
+    K = np.loadtxt(os.path.join(b["out"], "pheno.kinship"), delimiter="\t")
+    d, U = np.linalg.eigh(K)
+    rng = np.random.default_rng(18)
+    worst = 0.0
+    for j in cols:
+        idx = np.concatenate([[0], rng.choice(np.arange(1, k), 31,
+                                              replace=False)])
+        pa = np.asarray(sr.pa_rows.take(sr.rows[j][idx]))
+        x = np.unpackbits(np.ascontiguousarray(pa).view(np.uint8), axis=1,
+                          bitorder="little")[:, :n].astype(np.float64)
+        yj = tr.phenotypes[:, j] - tr.phenotypes[:, j].mean()
+        want = np.array([ml_lrt_oracle(xi, yj, d, U) for xi in x])
+        got = b["p"][j, idx]
+        err = np.abs(got - want) / want
+        worst = max(worst, float(err.max()))
+        need(bool((err <= 1e-4).all()),
+             f"gwas: column {j}: host64 p-values off the scipy oracle by "
+             f"up to {err.max():.2e} (relative)")
+    log(f"gwas: host64 p-values of 3 x 32 candidates within {worst:.2e} "
+        f"(relative; tolerance 1e-4) of the scipy oracle "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # device32 against host64: log10 p within 5e-2 where p < 0.05 (the JAX
+    # package's test); elsewhere p within 2e-3 or the LRT within 5e-3, the
+    # float32 resolution of the LRT at n=1008 (near p = 1, p =
+    # erfc(sqrt(LRT / 2)) turns an LRT error e into a p error ~sqrt(e))
+    from scipy.stats import chi2
+    p32, p64 = a["p"], b["p"]
+    small = p64 < 0.05
+    dlog = np.abs(np.log10(p32[small]) - np.log10(p64[small]))
+    dp = np.abs(p32 - p64)
+    dlrt = np.abs(chi2.isf(p32, 1) - chi2.isf(p64, 1))
+    over = dp > 2e-3
+    log(f"gwas: device32 against host64 over {p64.size} tests: max |dp| "
+        f"{dp.max():.2e} ({int(over.sum())} over 2e-3), max |dLRT| "
+        f"{dlrt.max():.2e}, max |dlog10 p| "
+        f"{dlog.max() if small.any() else 0:.2e} "
+        f"over the {int(small.sum())} with p < 0.05")
+    need(not small.any() or dlog.max() <= 5e-2,
+         f"gwas: device32 log10 p off by {dlog.max():.2e}")
+    bad = over & (dlrt > 5e-3)
+    need(not bad.any(), f"gwas: device32 off host64 in {int(bad.sum())} "
+         f"tests by |dp| over 2e-3 and |dLRT| over 5e-3")
+    log(f"gwas: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(k1=launches[0], k2=launches[1], k7=launches[2],
+                k7t=launches[3])
+
+
+def phase_gwas_cli(workdir, devices=("cuda", "cpu"), n=200, n_perm=10):
+    """`gwas --device cuda` against `--device cpu` on phase 5's table
+    (N=200, 20,000 rows): 10 permutations, -k 100, --score_precision
+    highest, --certify_topk (the candidates ranked by f64 re-scores, so
+    float32 near-ties cannot swap ranks between the devices). Every
+    artifact byte-identical, except those holding full floats or times
+    (summary.json, best_pvals, assoc.txt.gz, the pass files' p-values and
+    log_file): parsed and compared at rtol 1e-9."""
+    base = os.path.join(workdir, "small")
+    names = [ln.strip() for ln in open(base + ".names")]
+    need(len(names) == n, "gwas cli: phase 5's table is missing")
+    pheno = os.path.join(workdir, "gwas_small.pheno")
+    write_gwas_phenotype(pheno, names, seed=19)
+    outs = []
+    for i, dev in enumerate(devices):
+        if os.path.exists(base + ".kinship"):
+            os.remove(base + ".kinship")     # each run computes kinship
+        out = os.path.join(workdir, f"gwas_cli_{i}_{dev}")
+        cmd = [sys.executable, "-m", "kmersgwas_tpu_torch.cli", "gwas",
+               "--pheno", pheno, "--kmers_table", base, "--outdir", out,
+               "-l", "31", "-k", "100", "--permutations", str(n_perm),
+               "--batch_size", "4096", "--score_precision", "highest",
+               "--certify_topk", "--device", dev]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        need(proc.returncode == 0,
+             f"gwas --device {dev} failed:\n{proc.stdout}\n{proc.stderr}")
+        log(f"gwas --device {dev}: {proc.stdout.strip()} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        outs.append(gwas_outputs(out))
+    n_same, n_diff = compare_gwas_outputs(*outs)
+    log(f"gwas cli: {n_same} files byte-identical between --device "
+        f"{devices[0]} and --device {devices[1]}; assoc.txt.gz, best_pvals, "
+        f"the pass files and summary.json within rtol 1e-9 ({n_diff} lines "
+        f"differ in bytes)")
+
+
+def gwas_outputs(out):
+    """{path relative to out: bytes} of every file a gwas run wrote."""
+    files = {}
+    for root, _, fs in os.walk(out):
+        for f in fs:
+            path = os.path.join(root, f)
+            with open(path, "rb") as fh:
+                files[os.path.relpath(path, out)] = fh.read()
+    return files
+
+
+# the gwas artifacts that hold full floats or times: parsed, not compared
+# byte for byte
+GWAS_PARSED = ("summary.json", "log_file", "kmers/best_pvals",
+               "kmers/pass_threshold_5per", "kmers/pass_threshold_10per",
+               "kmers/output/phenotype_value.assoc.txt.gz")
+
+
+def compare_gwas_outputs(a, b, rtol=1e-9):
+    """Two gwas runs' outputs (gwas_outputs): the same files, every one
+    byte-identical but GWAS_PARSED; in those the same lines and fields,
+    text fields equal and numbers within rtol (summary.json's keys equal,
+    stage_seconds and log_file not compared) -> (files byte-identical,
+    lines of the parsed tables that differ in bytes)."""
+    import gzip
+    need(sorted(a) == sorted(b),
+         f"gwas: files differ: {sorted(a)} vs {sorted(b)}")
+    diff = [f for f in a if f not in GWAS_PARSED and a[f] != b[f]]
+    need(not diff, f"gwas: outputs differ: {diff}")
+    need(any(f.endswith(".bed") for f in a), "gwas: no bed output")
+    n_diff = 0
+    for f in GWAS_PARSED[2:]:
+        if f not in a:
+            continue
+        la, lb = ((gzip.decompress(x[f]) if f.endswith(".gz") else x[f])
+                  .decode().splitlines() for x in (a, b))
+        need(len(la) == len(lb), f"gwas: {f}: line counts differ")
+        for x, z in zip(la, lb):
+            n_diff += x != z
+            ta, tb = x.split("\t"), z.split("\t")
+            need(len(ta) == len(tb), f"gwas: {f}: fields differ")
+            for u, v in zip(ta, tb):
+                try:
+                    fu, fv = float(u), float(v)
+                except ValueError:      # k-mer, name and rank fields
+                    need(u == v, f"gwas: {f}: {u!r} != {v!r}")
+                    continue
+                need(math.isclose(fu, fv, rel_tol=rtol, abs_tol=0.0),
+                     f"gwas: {f}: {u} != {v}")
+    sa, sb = (json.loads(x["summary.json"]) for x in (a, b))
+    need(sorted(sa) == sorted(sb), "gwas: summary.json keys differ")
+    for key in sa:
+        va, vb = sa[key], sb[key]
+        need(key == "stage_seconds" or va == vb
+             or (isinstance(va, float) and isinstance(vb, float)
+                 and math.isclose(va, vb, rel_tol=rtol)),
+             f"gwas: summary.json {key}: {va} != {vb}")
+    return sum(f not in GWAS_PARSED for f in a), n_diff
+
+
 # ---------------------------------------------------------------- record
 
 def bound_ms(n_bytes, ops, ops_per_s, bytes_per_s):
@@ -2386,6 +2835,8 @@ def main():
         phase_at_scale(workdir)
         k9res = phase_probe_kernels()
         k8res = phase_probes()
+        gw = phase_gwas(mres, workdir, kin)
+        phase_gwas_cli(workdir)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2395,20 +2846,22 @@ def main():
         print("FAIL: jax was imported", file=sys.stderr)
         return 1
     t, e = kres["times"], kres["errs"]
-    rows = [("score_topw", TOPW_SOURCE, TOPW_REPLACES, mres["k1"], e[0],
-             t[0], t[1]),
-            ("score_bmax", BMAX_SOURCE, BMAX_REPLACES, mres["k2"], e[1],
-             t[2], t[3]),
+    # K1, K2 and K7 run on two paths: the scan (phase 3) or kinship (phase
+    # 8), and gwas (phase 18)
+    rows = [("score_topw", TOPW_SOURCE, TOPW_REPLACES,
+             mres["k1"] + gw["k1"], e[0], t[0], t[1]),
+            ("score_bmax", BMAX_SOURCE, BMAX_REPLACES,
+             mres["k2"] + gw["k2"], e[1], t[2], t[3]),
             ("score_tilemax", TILEMAX_SOURCE, TILEMAX_REPLACES, pres["k3"],
              e[2], t[4], t[5]),
             ("score_t", SCORE_T_SOURCE, SCORE_T_REPLACES, sres["k4"], e[3],
              t[6], t[7]),
             ("score_rows", SCORE_ROWS_SOURCE, SCORE_ROWS_REPLACES,
              bres["k5"], e[4], t[8], t[9]),
-            ("kinship_gram", KINSHIP_SOURCE, KINSHIP_REPLACES, kin["k7"],
-             0.0, t[10], t[11]),
+            ("kinship_gram", KINSHIP_SOURCE, KINSHIP_REPLACES,
+             kin["k7"] + gw["k7"], 0.0, t[10], t[11]),
             ("kinship_transpose", KINSHIP_SOURCE, KINSHIP_REPLACES,
-             kin["k7t"], 0.0, t[12], t[13]),
+             kin["k7t"] + gw["k7t"], 0.0, t[12], t[13]),
             ("gen_planes", GEN_SOURCE, GEN_REPLACES, bench_res["k6"], 0.0,
              *gres["times"]),
             ("score_parity", PARITY_SOURCE, PARITY_REPLACES, k8res["k8"],

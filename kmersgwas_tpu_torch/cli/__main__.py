@@ -1,7 +1,7 @@
 """CLI dispatcher: `python -m kmersgwas_tpu_torch.cli <command> [...]`.
 
-Port of kmersgwas_tpu/cli/__main__.py; `associate`, `associate-mp`,
-`kinship` and `kinship-mp` are ported so far.
+Port of kmersgwas_tpu/cli/__main__.py; `gwas`, `associate`,
+`associate-mp`, `kinship` and `kinship-mp` are ported so far.
 """
 from __future__ import annotations
 
@@ -9,6 +9,86 @@ import argparse
 import sys
 
 import numpy as np
+
+
+def _add_gwas(sub):
+    p = sub.add_parser("gwas", help="full k-mer GWAS pipeline (kmers_gwas.py)")
+    p.add_argument("--pheno", required=True)
+    p.add_argument("--kmers_table", required=True)
+    p.add_argument("--outdir", required=True)
+    p.add_argument("-l", "--kmer_len", type=int, required=True)
+    p.add_argument("-k", "--kmers_number", type=int, default=10001)
+    p.add_argument("--permutations", type=int, default=100)
+    p.add_argument("--maf", type=float, default=0.05)
+    p.add_argument("--mac", type=int, default=5)
+    p.add_argument("--min_data_points", type=int, default=30)
+    p.add_argument("--batch_size", type=int, default=2_000_000)
+    p.add_argument("--pattern_counter", action="store_true")
+    p.add_argument("--kinship", default=None, help="precomputed kinship TSV")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where kinship, the scan and the exact LMM run "
+                        "(cuda raises without a card)")
+    p.add_argument("--snp_matrix", default=None,
+                   help="PLINK base for the SNP arm (not ported: raises)")
+    p.add_argument("--run_on_snps_one_step", action="store_true")
+    p.add_argument("--run_on_snps_two_steps", action="store_true")
+    p.add_argument("--snps_number", type=int, default=10001)
+    p.add_argument("--dont_run_on_kmers", action="store_true")
+    p.add_argument("--dtable_cache", default=None,
+                   help="path for the device-native packed table cache")
+    p.add_argument("--kinship_snps", action="store_true",
+                   help="use kinship from the SNP matrix (not ported: "
+                        "raises)")
+    p.add_argument("--kmers_for_no_perm_phenotype", type=int, default=None,
+                   dest="n_extra_phenotype_kmers",
+                   help="heap size override for the real (non-permuted) "
+                        "phenotype")
+    p.add_argument("--dont_remove_intermediates", action="store_true")
+    p.add_argument("--lmm_backend", default="auto",
+                   choices=["auto", "host64", "device32"],
+                   help="exact-LMM stage backend (host64 = float64, "
+                        "device32 = packed bits + float32, both on --device)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard the scan over this many devices (not "
+                        "ported: more than 1 raises)")
+    p.add_argument("--score_precision", default="default",
+                   choices=["default", "highest"],
+                   help="score GEMM precision: default = phenotypes rounded "
+                        "to bf16 with f32 sums, highest = f32")
+    p.add_argument("--certify_topk", action="store_true",
+                   help="rank the scan's candidates by exact f64 re-scores: "
+                        "the same top-k and ranks on every device")
+    p.add_argument("--checkpoint", default=None,
+                   help="base path for resumable kinship/scan checkpoints "
+                        "(<base>.kin / <base>.scan)")
+    p.add_argument("--checkpoint_every", type=int, default=20,
+                   help="batches between checkpoint writes")
+
+    def run(a):
+        from ..pipeline.gwas import GWASConfig, run_gwas
+        res = run_gwas(GWASConfig(
+            pheno_path=a.pheno, kmers_table=a.kmers_table, outdir=a.outdir,
+            kmer_len=a.kmer_len, n_kmers=a.kmers_number,
+            n_permutations=a.permutations, maf=a.maf, mac=a.mac,
+            min_data_points=a.min_data_points, batch_size=a.batch_size,
+            pattern_counter=a.pattern_counter, kinship_path=a.kinship,
+            seed=a.seed, device=a.device,
+            run_kmers=not a.dont_run_on_kmers, snps_matrix=a.snp_matrix,
+            run_snps=("one_step" if a.run_on_snps_one_step else
+                      "two_steps" if a.run_on_snps_two_steps else None),
+            n_snps=a.snps_number, dtable_cache=a.dtable_cache,
+            kinship_snps=a.kinship_snps,
+            n_extra_phenotype_kmers=a.n_extra_phenotype_kmers,
+            remove_intermediates=not a.dont_remove_intermediates,
+            lmm_backend=a.lmm_backend, score_precision=a.score_precision,
+            certify_topk=a.certify_topk, checkpoint_base=a.checkpoint,
+            checkpoint_every=a.checkpoint_every,
+            n_devices=a.devices))
+        th5 = res.thresholds.get("5per")
+        print(f"threshold_5per={th5 if th5 is not None else 'n/a'} "
+              f"pass_5per={len(res.pass_5per)} tested={res.n_tested}")
+    p.set_defaults(func=run)
 
 
 def _add_associate(sub):
@@ -238,9 +318,9 @@ def _add_kinship_mp(sub):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="kmersgwas_tpu_torch",
-        description="k-mer GWAS association scan and kinship in PyTorch + "
-                    "CUDA")
+        description="k-mer GWAS in PyTorch + CUDA")
     sub = ap.add_subparsers(dest="command", required=True)
+    _add_gwas(sub)
     _add_associate(sub)
     _add_associate_mp(sub)
     _add_kinship(sub)

@@ -505,3 +505,104 @@ def test_gen_planes_without_popcounts_equal_plain(cuda, rows, w32, step):
     want = gen.gen_planes_plain(torch.arange(rows, device=cuda), w32, 3,
                                 step, popcount=False)
     assert torch.equal(alone, want)
+
+
+def stats_inputs(seed, n, m, p):
+    """A kinship-like K, its eigen-system, (p, m, n) 0/1 candidates and
+    (p, n) phenotype columns with a genetic part."""
+    rng = np.random.default_rng(seed)
+    G0 = rng.normal(size=(n, 2 * n))
+    K = G0 @ G0.T / (2 * n)
+    K = K / np.diag(K).mean()
+    w, U = np.linalg.eigh(K)
+    genos = (rng.random((p, m, n)) < 0.4).astype(np.float64)
+    ys = (np.linalg.cholesky(K + 1e-9 * np.eye(n))
+          @ rng.normal(size=(n, p))).T + rng.normal(size=(p, n))
+    return K, w, U, genos, ys
+
+
+def test_remle_and_lmm_on_card_equal_cpu(cuda):
+    """REML and lmm_scan_columns in float64 on the card: the CPU's numbers
+    within rtol 1e-9 (p_lrt, the log-likelihoods and REML's estimates;
+    log10 lambda and beta sit at the golden-section search's float64
+    resolution, ~1e-6, as between the port and the JAX package)."""
+    from kmersgwas_tpu_torch.stats import emma, lmm
+    K, w, U, genos, ys = stats_inputs(21, 120, 60, 3)
+    y = ys[0] - ys[0].mean()
+    a, b = (emma.remle(y, K, device=d) for d in ("cuda", "cpu"))
+    for f in a._fields:
+        np.testing.assert_allclose(float(getattr(a, f)),
+                                   float(getattr(b, f)), rtol=1e-9)
+    ra, rb = (lmm.lmm_scan_columns(genos, ys, w, U, device=d)
+              for d in ("cuda", "cpu"))
+    for f in ("p_lrt", "logl_alt"):
+        np.testing.assert_allclose(getattr(ra, f).cpu().numpy(),
+                                   getattr(rb, f).numpy(), rtol=1e-9)
+    np.testing.assert_allclose(ra.log10_lambda.cpu().numpy(),
+                               rb.log10_lambda.numpy(), rtol=0, atol=1e-5)
+
+
+def test_device32_on_card_matches_host64(cuda):
+    """The packed float32 route on the card against float64 on the CPU, on
+    the JAX package's test data shape (tests/test_stats.py:343-369) and at
+    its tolerances."""
+    from kmersgwas_tpu_torch.stats import lmm
+    _, w, U, genos, ys = stats_inputs(17, 96, 40, 3)
+    ref = lmm.lmm_scan_columns(genos, ys, w, U, device="cpu")
+    bits = np.zeros((3, 40, 128), np.uint8)
+    bits[:, :, :96] = genos
+    packed = bitplanes.pack_bits_np(bits)
+    got = lmm.lmm_scan_columns_packed(packed, ys, w, U, n=96, device="cuda")
+    assert got.p_lrt.dtype == torch.float32 and got.p_lrt.is_cuda
+    p_ref = ref.p_lrt.numpy()
+    p_got = got.p_lrt.cpu().numpy().astype(np.float64)
+    np.testing.assert_allclose(p_got, p_ref, atol=2e-3)
+    small = p_ref < 0.05
+    if small.any():
+        np.testing.assert_allclose(np.log10(p_got[small]),
+                                   np.log10(p_ref[small]), atol=5e-2)
+
+
+def test_run_gwas_on_card_equals_cpu(cuda, tmp_path):
+    """A small run_gwas on the card against the CPU (host64 on both,
+    precision "highest", certify_topk): the artifact comparison of the
+    smoke's gwas CLI check; K1 and K7 launched on the card."""
+    import pathlib
+    import sys
+    from kmersgwas_tpu_torch.pipeline import gwas
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    rng = np.random.default_rng(12)
+    n = 120
+    base, names = write_table(tmp_path, rng, n, 20_000, 31)
+    pheno = str(tmp_path / "pheno.tsv")
+    chip_smoke.write_gwas_phenotype(pheno, names, seed=3)
+    outs = []
+    before = (score.score_batch_t_topw.launches,
+              kinship.kinship_accumulate.launches)
+    for d in ("cuda", "cpu"):
+        pathlib.Path(base + ".kinship").unlink(missing_ok=True)
+        gwas.run_gwas(gwas.GWASConfig(
+            pheno_path=pheno, kmers_table=base, outdir=str(tmp_path / d),
+            kmer_len=31, n_kmers=40, n_permutations=10, batch_size=4096,
+            score_precision="highest", certify_topk=True, device=d))
+        outs.append(chip_smoke.gwas_outputs(str(tmp_path / d)))
+    assert score.score_batch_t_topw.launches > before[0]
+    assert kinship.kinship_accumulate.launches > before[1]
+    chip_smoke.compare_gwas_outputs(*outs)
+
+
+def test_run_gwas_without_a_card_raises(monkeypatch, tmp_path):
+    """device="cuda" without a card raises before any stage runs; no stage
+    falls back to the CPU."""
+    from kmersgwas_tpu_torch.cli.__main__ import main
+    from kmersgwas_tpu_torch.pipeline import gwas
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gwas.GWASConfig(pheno_path="absent.tsv", kmers_table="absent",
+                          outdir=str(tmp_path / "out"), kmer_len=31)
+    with pytest.raises(RuntimeError, match="is_available"):
+        gwas.run_gwas(cfg)
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(["gwas", "--pheno", "absent.tsv", "--kmers_table", "absent",
+              "--outdir", str(tmp_path / "cli"), "-l", "31"])
+    assert not (tmp_path / "out").exists()

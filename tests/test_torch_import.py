@@ -21,6 +21,12 @@ def test_port_imports_without_jax_or_a_build():
         "import kmersgwas_tpu_torch, kmersgwas_tpu_torch.convert\n"
         "import kmersgwas_tpu_torch.pipeline.scan\n"
         "import kmersgwas_tpu_torch.pipeline.kinship\n"
+        "import kmersgwas_tpu_torch.pipeline.gwas\n"
+        "import kmersgwas_tpu_torch.pipeline.align\n"
+        "import kmersgwas_tpu_torch.stats.emma\n"
+        "import kmersgwas_tpu_torch.stats.mvnpermute\n"
+        "import kmersgwas_tpu_torch.stats.transform\n"
+        "import kmersgwas_tpu_torch.stats.lmm\n"
         "import kmersgwas_tpu_torch.ops.kinship\n"
         "import kmersgwas_tpu_torch.ops.scanstep\n"
         "import kmersgwas_tpu_torch.parallel.multihost\n"

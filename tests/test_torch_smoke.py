@@ -149,3 +149,58 @@ def test_kernel_ms_in_order_assigns_launches_to_jobs():
                                  "no pc": 0.081})
     with pytest.raises(chip_smoke.PhaseError, match="1 of 2"):
         chip_smoke.kernel_ms_in_order(events[:6], jobs, reps=2)
+
+
+def test_kinship_batch_split_divides_by_full_batch_equivalents():
+    """A run of 2.5 full batches' rows: its device time and each kernel's
+    per full batch, and the idle share they leave of a batch's wall."""
+    per = {"void kgt::kinship_gram_kernel<4>(int const*)": 5.0,
+           "kgt::kinship_transpose_kernel(unsigned int const*)": 0.5,
+           "Memcpy HtoD (Pageable -> Device)": 2.0,
+           "void at::native::vectorized_elementwise_kernel<4>()": 0.25}
+    sp = chip_smoke.kinship_batch_split(10.0, 7.75, per, 2.5, "run")
+    assert sp["busy"] == pytest.approx(3.1)
+    assert (sp["gram"], sp["transpose"], sp["h2d"]) == pytest.approx(
+        (2.0, 0.2, 0.8))
+    assert sp["idle"] == pytest.approx(69.0)
+    assert chip_smoke.kinship_batch_split(3.1, 7.75, per, 2.5, "run")[
+        "idle"] == pytest.approx(0.0)
+
+
+@pytest.mark.parametrize("wall", [3.0, 0.0001])
+def test_kinship_batch_split_refuses_an_idle_share_outside_0_100(wall):
+    """A batch's wall shorter than its device time (the enqueue intervals
+    an earlier reading took) is no measurement: the phase fails."""
+    with pytest.raises(chip_smoke.PhaseError, match="outside"):
+        chip_smoke.kinship_batch_split(wall, 7.75, {}, 2.5, "steady")
+
+
+def gwas_files(p_line="P1\t3.25", bim="A_1\nC_2\n"):
+    import gzip
+    import json
+    summary = {"n_accessions": 5, "heritability": 0.5, "lmm_backend":
+               "host64", "stage_seconds": {"scan": 1.0}}
+    return {"summary.json": json.dumps(summary).encode(),
+            "log_file": b"[stage] scan: 1.00s\n",
+            "kmers/best_pvals": f"phenotype_value\t2.5\n{p_line}\n".encode(),
+            "kmers/pheno.0.phenotype_value.bed": b"\x6c\x1b\x01",
+            "kmers/pheno.0.phenotype_value.bim": bim.encode(),
+            "kmers/output/phenotype_value.assoc.txt.gz": gzip.compress(
+                b"chr\trs\tp_lrt\n0\tACGT_1\t1.000000e-03\n", mtime=0)}
+
+
+def test_compare_gwas_outputs_parses_floats_and_holds_bytes():
+    """Full floats within rtol 1e-9 and the lines that differ in bytes
+    counted; summary.json's stage_seconds and log_file ignored; every
+    other file byte for byte."""
+    a = gwas_files()
+    b = gwas_files(p_line="P1\t3.2500000000000004")
+    b["log_file"] = b"[stage] scan: 2.00s\n"
+    b["summary.json"] = b["summary.json"].replace(b'"scan": 1.0',
+                                                  b'"scan": 2.0')
+    assert chip_smoke.compare_gwas_outputs(a, b) == (2, 1)
+    for bad in (gwas_files(p_line="P1\t3.26"),
+                gwas_files(bim="C_1\nA_2\n"),
+                gwas_files(p_line="P2\t3.25")):
+        with pytest.raises(chip_smoke.PhaseError):
+            chip_smoke.compare_gwas_outputs(a, bad)
