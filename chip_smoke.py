@@ -52,7 +52,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      on phase 3's table (N=1008, P=101, top-10001, 2M-row batches): the
      same top-k as `associate` in all 101 columns, K3 on every batch;
   7. `associate-mp` in 2 processes sharing the card (gloo) against 1
-     process: output files byte-identical;
+     process, both runs at once: output files byte-identical;
   8. the kinship path, `kinship_from_table` on phase 3's table (N=1008,
      4.2M rows, maf 0.05, 2^20-row batches, K7 on every batch) on both
      routes: equal to the plain accumulator on the card bit for bit, to a
@@ -116,8 +116,26 @@ Phases (each prints its own lines; any failure exits non-zero):
      device32 to host64, the thresholds to the order statistic of
      best_pvals, the pass files to the assoc table; stage seconds of both
      runs. Then `gwas --device cuda` against `--device cpu` on phase 5's
-     table: artifacts byte-identical, full floats within rtol 1e-9; the
-     smoke's wall time.
+     table: artifacts byte-identical, full floats within rtol 1e-9;
+ 19. the SNP arm at a real size (phase_snps): a synthetic bed of 2^20
+     SNPs over phase 3's 1008 accessions (MAF uniform in [0.01, 0.5], 2 %
+     het, 5 % missing, one planted causal SNP), made on the card;
+     emma_kinship_from_bed against a float64 recomputation on 64 pairs;
+     the GRAMMAR prefilter over 1 + 100 columns, top-10001, against numpy
+     float64 on 4096 SNPs and the float64 ranking's sets (boundary swaps
+     counted);
+     `run_gwas` on phase 3's table with kinship_snps and the SNP arm
+     two_steps (100 permutations; K1, K2 and not K7), the planted SNP
+     past the 5 % threshold, p-values of 4 x 32 SNPs against the scipy
+     oracle, stage seconds, the SNP arm's peak host RSS increase (under
+     1.5 GB) and device memory; one_step on the first 2^14 SNPs x 101
+     columns; the CLI `kinship-bed`, `associate-snps` and `gwas` with the
+     SNP flags, --device cuda against --device cpu;
+ 20. the EMMA library on the card (phase_emma): emma_ML_LRT and
+     emma_REML_t at n=1008 (phase 8's kinship), 4096 variants, g=2, NaNs
+     in ~1 % of the xs entries and in one ys row, against the port's CPU
+     float64 run on 128 of the variants; calc_gamma on phase 3's table,
+     card against CPU; the smoke's wall time.
 The script writes its inputs itself and imports nothing of the JAX
 package. The bench's and the at-scale stream's JSON lines come on earlier
 lines. The line before the last is the kernels' JSON record (per kernel:
@@ -1433,47 +1451,59 @@ def phase_mp(main, batch=2_000_000, device="cuda"):
 def phase_mp_cli(workdir, main, n_proc=2, device="cuda", batch=2_000_000,
                  timeout=600):
     """`associate-mp` in n_proc processes over gloo, all on the one card,
-    against one process: every output file byte-identical."""
+    against one process: every output file byte-identical. The two runs
+    go at once (n_proc + 1 processes on the card), each with its own
+    coordinator port."""
     import socket
     import torch
     if device == "cuda":
         torch.cuda.empty_cache()        # the card is shared with the ranks
     pheno = os.path.join(workdir, "mp.pheno")
     write_phenotypes(pheno, main["cols"], main["names"], main["y"])
-    outs = {}
-    for n in (n_proc, 1):
-        out = os.path.join(workdir, f"mp_{n}")
-        os.makedirs(out)
-        with socket.socket() as sk:
+    socks = [socket.socket() for _ in range(2)]
+    try:                                # two ports, free at once
+        for sk in socks:
             sk.bind(("127.0.0.1", 0))
-            port = sk.getsockname()[1]
-        cmd = [sys.executable, "-m", "kmersgwas_tpu_torch.cli",
-               "associate-mp", "-p", pheno, "-t", main["base"],
-               "-k", str(main["kmer_len"]), "-o", out, "-b", "10001",
-               "--batch_size", str(batch), "--pattern_counter",
-               "--device", device, "--dtable_cache", main["dtable"],
-               "--coordinator", f"127.0.0.1:{port}",
-               "--num_processes", str(n)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(cmd + ["--process_id", str(i)], cwd=ROOT,
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for i in range(n)]
-        try:
-            logs = [pr.communicate(timeout=timeout)[0] for pr in procs]
-        finally:
-            for pr in procs:            # a failed or hung rank: stop all
+        ports = [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for n, port in zip((n_proc, 1), ports):
+            out = os.path.join(workdir, f"mp_{n}")
+            os.makedirs(out)
+            cmd = [sys.executable, "-m", "kmersgwas_tpu_torch.cli",
+                   "associate-mp", "-p", pheno, "-t", main["base"],
+                   "-k", str(main["kmer_len"]), "-o", out, "-b", "10001",
+                   "--batch_size", str(batch), "--pattern_counter",
+                   "--device", device, "--dtable_cache", main["dtable"],
+                   "--coordinator", f"127.0.0.1:{port}",
+                   "--num_processes", str(n)]
+            procs[n] = [subprocess.Popen(
+                cmd + ["--process_id", str(i)], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for i in range(n)]
+        logs = {n: [pr.communicate(timeout=timeout)[0] for pr in ps]
+                for n, ps in procs.items()}
+    finally:
+        for ps in procs.values():       # a failed or hung rank: stop all
+            for pr in ps:
                 if pr.poll() is None:
                     pr.kill()
                     pr.wait()
-        for i, (pr, text) in enumerate(zip(procs, logs)):
+    outs = {}
+    for n, ps in procs.items():
+        for i, (pr, text) in enumerate(zip(ps, logs[n])):
             need(pr.returncode == 0, f"associate-mp {n} processes: rank {i} "
                  f"exited {pr.returncode}:\n{text[-3000:]}")
         log(f"associate-mp --num_processes {n} --device {device}: "
-            f"{time.perf_counter() - t0:.1f} s wall; "
-            + "; ".join(t.strip().splitlines()[-1] for t in logs))
+            + "; ".join(t.strip().splitlines()[-1] for t in logs[n]))
+        out = os.path.join(workdir, f"mp_{n}")
         outs[n] = {f: open(os.path.join(out, f), "rb").read()
                    for f in sorted(os.listdir(out))}
+    log(f"associate-mp: both runs {time.perf_counter() - t0:.1f} s wall")
     a, b = outs[n_proc], outs[1]
     need(sorted(a) == sorted(b), f"associate-mp outputs differ in files")
     diff = [f for f in a if a[f] != b[f]]
@@ -2680,24 +2710,42 @@ def gwas_outputs(out):
 # byte for byte
 GWAS_PARSED = ("summary.json", "log_file", "kmers/best_pvals",
                "kmers/pass_threshold_5per", "kmers/pass_threshold_10per",
-               "kmers/output/phenotype_value.assoc.txt.gz")
+               "kmers/output/phenotype_value.assoc.txt.gz",
+               "snps/best_pvals", "snps/pass_threshold_5per",
+               "snps/pass_threshold_10per")
+# the exact LMM's (l_mle, p_lrt) across devices where a float64 kinship's
+# rounding differs (the SNP kinship): lambda's profile is flat to its
+# rounding near the optimum, where the golden-section search follows the
+# noise (ROADMAP section C, known item 4; 2.3e-4 = ln(10) x 1e-4 in log10
+# lambda, as tests/test_torch_stats.py holds it)
+LMM_RTOL = (2.3e-4, 1e-6)
 
 
-def compare_gwas_outputs(a, b, rtol=1e-9):
-    """Two gwas runs' outputs (gwas_outputs): the same files, every one
-    byte-identical but GWAS_PARSED; in those the same lines and fields,
-    text fields equal and numbers within rtol (summary.json's keys equal,
+def compare_gwas_outputs(a, b, rtol=1e-9, prefix="", lmm_rtol=None,
+                         kinship_atol=None):
+    """Two gwas runs' outputs (gwas_outputs; the run's files under
+    `prefix`): the same files, every one byte-identical but GWAS_PARSED and
+    the SNP arm's assoc tables (and pheno.kinship where kinship_atol is
+    given); in those the same lines and fields, text fields equal, numbers
+    within rtol, the assoc layout's l_mle and p_lrt within lmm_rtol where
+    given, pheno.kinship within kinship_atol (summary.json's keys equal,
     stage_seconds and log_file not compared) -> (files byte-identical,
     lines of the parsed tables that differ in bytes)."""
     import gzip
     need(sorted(a) == sorted(b),
          f"gwas: files differ: {sorted(a)} vs {sorted(b)}")
-    diff = [f for f in a if f not in GWAS_PARSED and a[f] != b[f]]
+
+    def rel(f):
+        return f[len(prefix):] if f.startswith(prefix) else None
+    parsed = [f for f in a if rel(f) is not None and (
+        rel(f) in GWAS_PARSED or rel(f).startswith("snps/output/")
+        or (kinship_atol is not None and rel(f) == "pheno.kinship"))]
+    diff = [f for f in a if f not in parsed and a[f] != b[f]]
     need(not diff, f"gwas: outputs differ: {diff}")
     need(any(f.endswith(".bed") for f in a), "gwas: no bed output")
     n_diff = 0
-    for f in GWAS_PARSED[2:]:
-        if f not in a:
+    for f in parsed:
+        if rel(f) in ("summary.json", "log_file"):
             continue
         la, lb = ((gzip.decompress(x[f]) if f.endswith(".gz") else x[f])
                   .decode().splitlines() for x in (a, b))
@@ -2706,23 +2754,658 @@ def compare_gwas_outputs(a, b, rtol=1e-9):
             n_diff += x != z
             ta, tb = x.split("\t"), z.split("\t")
             need(len(ta) == len(tb), f"gwas: {f}: fields differ")
-            for u, v in zip(ta, tb):
+            for i, (u, v) in enumerate(zip(ta, tb)):
                 try:
                     fu, fv = float(u), float(v)
                 except ValueError:      # k-mer, name and rank fields
                     need(u == v, f"gwas: {f}: {u!r} != {v!r}")
                     continue
-                need(math.isclose(fu, fv, rel_tol=rtol, abs_tol=0.0),
-                     f"gwas: {f}: {u} != {v}")
-    sa, sb = (json.loads(x["summary.json"]) for x in (a, b))
-    need(sorted(sa) == sorted(sb), "gwas: summary.json keys differ")
-    for key in sa:
-        va, vb = sa[key], sb[key]
-        need(key == "stage_seconds" or va == vb
-             or (isinstance(va, float) and isinstance(vb, float)
-                 and math.isclose(va, vb, rel_tol=rtol)),
-             f"gwas: summary.json {key}: {va} != {vb}")
-    return sum(f not in GWAS_PARSED for f in a), n_diff
+                if rel(f) == "pheno.kinship":
+                    ok = abs(fu - fv) <= kinship_atol
+                elif lmm_rtol is not None and len(ta) == 9 and i >= 7:
+                    ok = math.isclose(fu, fv, rel_tol=lmm_rtol[i - 7])
+                else:
+                    ok = math.isclose(fu, fv, rel_tol=rtol, abs_tol=0.0)
+                need(ok, f"gwas: {f}: {u} != {v}")
+    if prefix + "summary.json" in a:
+        sa, sb = (json.loads(x[prefix + "summary.json"]) for x in (a, b))
+        need(sorted(sa) == sorted(sb), "gwas: summary.json keys differ")
+        for key in sa:
+            va, vb = sa[key], sb[key]
+            need(key == "stage_seconds" or va == vb
+                 or (isinstance(va, float) and isinstance(vb, float)
+                     and math.isclose(va, vb, rel_tol=rtol)),
+                 f"gwas: summary.json {key}: {va} != {vb}")
+    return sum(f not in parsed for f in a), n_diff
+
+
+# ---------------------------------------------------------------- phase 19
+
+SNP_M = 1 << 20            # SNPs of phase 19's bed
+SNP_CHUNK = 1 << 16        # SNPs made a chunk
+SNP_SMALL = 1 << 14        # phase 19 (d)'s depth cut
+
+
+def write_snp_bed(base, names, m, seed, causal=None, device="cuda"):
+    """Synthetic PLINK bed/bim/fam made on `device` from a seed, a chunk
+    of SNPs at a time: per SNP a minor allele frequency uniform in [0.01,
+    0.5]; per call missing with probability 0.05, else heterozygous with
+    0.02, else homozygous for the minor allele with the SNP's frequency.
+    causal = (index, 0/1 per sample) plants one SNP with no missing or het
+    call (hom alt where 1). len(names) must be a multiple of 4."""
+    import torch
+    from kmersgwas_tpu_torch.core import formats
+    n = len(names)
+    need(n % 4 == 0, "write_snp_bed: samples not a multiple of 4")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=device)
+    with open(base + ".bed", "wb") as f:
+        f.write(formats.PLINK_BED_MAGIC)
+        for s in range(0, m, SNP_CHUNK):
+            c = min(SNP_CHUNK, m - s)
+            maf = 0.01 + 0.49 * torch.rand((c, 1), generator=gen,
+                                           device=device)
+            r = torch.rand((c, n), generator=gen, device=device)
+            alt = torch.rand((c, n), generator=gen, device=device) < maf
+            d = torch.where(r < 0.05, 1, torch.where(
+                r < 0.07, 2, torch.where(alt, 3, 0))).to(torch.uint8)
+            if causal is not None and s <= causal[0] < s + c:
+                d[causal[0] - s] = torch.as_tensor(
+                    np.where(causal[1], 3, 0), dtype=torch.uint8,
+                    device=device)
+            by = (d.view(c, n // 4, 4) << shifts).sum(-1).to(torch.uint8)
+            f.write(by.cpu().numpy().tobytes())
+    with open(base + ".bim", "w") as f:
+        f.write("".join(f"{1 + i * 22 // m}\tsnp{i}\t0\t{1000 + 37 * i}"
+                        f"\tA\tG\n" for i in range(m)))
+    formats.write_fam(base + ".fam", names, np.zeros(n))
+
+
+def bed_body(base, n):
+    """The bed's genotype bytes, (M, n/4) uint8, mapped."""
+    return np.memmap(base + ".bed", dtype=np.uint8, mode="r", offset=3) \
+        .reshape(-1, n // 4)
+
+
+def bed_columns(body, cols):
+    """(M, len(cols)) dubits of the samples `cols`, by numpy."""
+    cols = np.asarray(cols)
+    return (body[:, cols // 4] >> (2 * (cols % 4)).astype(np.uint8)) & 3
+
+
+def kinship_pairs_oracle(body, n, pairs, device, chunk=1 << 16):
+    """float64 EMMA kinship (emma_kinship.cpp:67-152: the two imputed
+    passes, straight from the formula) of the sample pairs, over chunks of
+    the bed's bytes decoded with plain torch on `device` (none of the
+    port's code)."""
+    import torch
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=device)
+    pi, pj = (torch.as_tensor(pairs[:, c], device=device) for c in (0, 1))
+    acc = torch.zeros(len(pairs), dtype=torch.float64, device=device)
+    used = 0
+    for s in range(0, body.shape[0], chunk):
+        b = torch.from_numpy(np.asarray(body[s:s + chunk])).to(device)
+        d = ((b[..., None] >> shifts) & 3).reshape(b.shape[0], -1)[:, :n]
+        hom = (d == 3).sum(1, keepdim=True).double()
+        het = (d == 2).sum(1, keepdim=True).double()
+        obs = (d != 1).sum(1, keepdim=True).double()
+        keep = obs[:, 0] > 0
+        used += int(keep.sum())
+        for maf, val in ((hom / obs, d == 3), ((hom + het) / obs,
+                                               (d == 3) | (d == 2))):
+            g = torch.where(d == 1, maf, val.double())[keep]
+            gi, gj = g[:, pi], g[:, pj]
+            acc += (gi * gj + (1 - gi) * (1 - gj)).sum(0)
+    return (acc / (2 * used)).cpu().numpy()
+
+
+def snp_scores_oracle(body, rows, y, min_count):
+    """numpy float64 GRAMMAR scores (snps_multiple_databases.cpp:157-172)
+    of the SNPs `rows` against y (n, P), from the bed's bytes."""
+    n = y.shape[0]
+    d = bed_columns(body[np.sort(rows)], np.arange(n))
+    d = d[np.argsort(np.argsort(rows))]
+    g = (d == 3) + 0.5 * (d == 2)
+    obs = (d != 1).astype(float)
+    N, S, S2 = obs.sum(1)[:, None], g.sum(1)[:, None], (g * g).sum(1)[:, None]
+    r = N * (g @ y) - S * (obs @ y)
+    denom = N * (N * S2 - S * S)
+    sc = np.where(denom > 0, r * r / np.where(denom > 0, denom, 1), 0.0)
+    return np.where((S >= min_count) & (N - S >= min_count), sc, 0.0)
+
+
+def snp_scores_f64(planes, y, min_count, block=1 << 16):
+    """Every SNP's GRAMMAR score in float64 on the planes' device (plain
+    torch: unpacked planes, float64 products) -> (M, P)."""
+    import torch
+    yy = torch.zeros((planes.n_pad, y.shape[1]), dtype=torch.float64,
+                     device=planes.presence.device)
+    yy[:planes.n_samples] = torch.from_numpy(y.astype(np.float64))
+    shifts = torch.arange(32, dtype=torch.int32, device=yy.device)
+    out = []
+    for s in range(0, planes.presence.shape[0], block):
+        def bits(p):
+            return ((p[s:s + block, :, None] >> shifts) & 1).reshape(
+                p[s:s + block].shape[0], -1).to(torch.float64)
+        g = bits(planes.presence) + 0.5 * bits(planes.het)
+        ob = bits(planes.nonmiss)
+        N, S = ob.sum(1, keepdim=True), g.sum(1, keepdim=True)
+        S2 = (g * g).sum(1, keepdim=True)
+        r = N * (g @ yy) - S * (ob @ yy)
+        denom = N * (N * S2 - S * S)
+        sc = torch.where(denom > 0, r * r / denom, 0.0)
+        out.append(torch.where((S >= min_count) & (N - S >= min_count), sc,
+                               0.0))
+    return torch.cat(out)
+
+
+def count_boundary_swaps(idx, s64, k, rtol=1e-5):
+    """Each column's selected rows idx[j] against the float64 ranking's
+    top k of s64 (M, P) on the device (a stable descending sort: the lower
+    index first on ties) -> the number of selected rows outside the
+    float64 set, per column; fails unless each of them, and each float64
+    row left out, lies within rtol of the column's k-th float64 score (a
+    swap within float32 rounding at the boundary)."""
+    import torch
+    top = torch.sort(s64.T, dim=1, descending=True,
+                     stable=True).indices[:, :k]
+    kth = s64.T.gather(1, top[:, k - 1:]).cpu().numpy()[:, 0]
+    top = top.cpu().numpy()
+    s64 = s64.cpu().numpy()
+    swaps = []
+    for j, got in enumerate(idx):
+        odd = np.setxor1d(got, top[j])
+        bad = np.abs(s64[odd, j] - kth[j]) > rtol * abs(kth[j])
+        need(len(got) == k and not bad.any(),
+             f"snps: column {j}: {int(bad.sum())} selected rows off the "
+             f"float64 ranking beyond float32 rounding")
+        swaps.append(len(np.setdiff1d(got, top[j])))
+    return swaps
+
+
+def status_kb(key):
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith(key + ":"):
+                return int(ln.split()[1])
+    raise PhaseError(f"/proc/self/status has no {key}")
+
+
+def max_rss_kb():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+
+class PeakRSS:
+    """The peak host RSS increase over a `with` block, in bytes: the
+    largest VmRSS a sampling thread reads (every 10 ms) or, where the block
+    sets the process's new high-water mark, that mark itself (exact;
+    getrusage's ru_maxrss), less VmRSS at the start. The card's machine
+    can neither reset the mark (/proc/self/clear_refs) nor show VmHWM."""
+
+    def __enter__(self):
+        import threading
+        self.start, self.hwm0 = status_kb("VmRSS"), max_rss_kb()
+        self.peak, self.stop = self.start, threading.Event()
+
+        def sample():
+            while not self.stop.wait(0.01):
+                self.peak = max(self.peak, status_kb("VmRSS"))
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        hwm = max_rss_kb()
+        peak = max(self.peak, status_kb("VmRSS"),
+                   hwm if hwm > self.hwm0 else 0)
+        self.increase = (peak - self.start) * 1024
+
+
+class Measured:
+    """Wraps `module.name` for one run: each call's wall, its peak host
+    RSS increase (PeakRSS) and the peak device memory it allocated, kept
+    in call order with its result."""
+
+    def __init__(self, module, name, device):
+        self.module, self.name, self.device, self.calls = \
+            module, name, device, []
+
+    def __enter__(self):
+        import torch
+        fn = self.orig = getattr(self.module, self.name)
+        cuda = self.device == "cuda"
+
+        def wrapper(*a, **k):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                dev0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with PeakRSS() as rss:
+                r = fn(*a, **k)
+                if cuda:
+                    torch.cuda.synchronize()
+            self.calls.append(dict(
+                result=r, wall=time.perf_counter() - t0, rss=rss.increase,
+                device=torch.cuda.max_memory_allocated() - dev0 if cuda
+                else 0))
+            return r
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def read_assoc_rows(path):
+    """assoc.txt -> (SNP indices from the rs names snp<i>, af, l_mle,
+    p_lrt)."""
+    rs, af, l_mle, p = read_assoc(path)
+    return np.array([int(r[3:]) for r in rs]), af, l_mle, p
+
+
+def snp_dose(body, i, cols):
+    """SNP i's mean-imputed dose over the samples `cols` (in that order),
+    as GEMMA's -miss handling: missing calls at the observed mean."""
+    d = bed_columns(body[i:i + 1], np.asarray(cols))[0]
+    g = (d == 3) + 0.5 * (d == 2)
+    obs = d != 1
+    return np.where(obs, g, g[obs].sum() / max(obs.sum(), 1))
+
+
+def phase_snps(main, workdir, m=SNP_M, n_snps=10001, n_perm=100, k=10001,
+               batch=2_000_000, device="cuda"):
+    """The SNP arm at a real size: a synthetic bed of SNP_M = 2^20 SNPs
+    over phase 3's 1008 accessions in the table's order (write_snp_bed,
+    one planted causal SNP).
+    (a) emma_kinship_from_bed on the card against a float64
+        recomputation from the formula on 64 sampled pairs (plain torch
+        on the bed's bytes; atol 1e-12);
+    (b) most_associated_snps over 1 + 100 columns, top-10001: the scores
+        of 4096 sampled SNPs against numpy float64 from the bed's bytes,
+        each column's set against the float64 ranking's (swaps only within
+        float32 rounding at the boundary, counted);
+    (c) run_gwas on phase 3's table and this bed, kinship_snps, two_steps,
+        100 permutations, top-10001, 2M-row batches: the planted SNP
+        passes the 5 % threshold, p-values of 32 SNPs of the real column
+        and of 3 permutation columns against the scipy oracle (as phase
+        18), the thresholds the order statistic of best_pvals, K1 and K2
+        launched and K7 not; stage seconds, the SNP arm's peak host RSS
+        increase (under 1.5 GB) and peak device memory;
+    (d) one_step on the first SNP_SMALL = 2^14 SNPs x 101 columns (a depth
+        cut: 101 x 2^20 exact tests would set the smoke's wall), its real
+        column equal to (c)'s on those SNPs;
+    (e) the CLI on a 20,000-SNP x 200-sample bed over phase 5's table:
+        kinship-bed, associate-snps and gwas --run_on_snps_two_steps
+        --kinship_snps (10 permutations), --device cuda against --device
+        cpu (compare_gwas_outputs).
+    Smaller arguments and device="cpu" rehearse the phase without a
+    card."""
+    import torch
+    from kmersgwas_tpu_torch.ops import kinship as kin_ops
+    from kmersgwas_tpu_torch.ops import score
+    from kmersgwas_tpu_torch.pipeline import gwas as gwas_mod
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    from kmersgwas_tpu_torch.snps import assoc
+    from kmersgwas_tpu_torch.snps import bed as bed_mod
+    cuda = device == "cuda"
+    names, n = main["names"], main["n"]
+    causal_i = m * 3 // 4 + 1
+    bed = os.path.join(workdir, "snps")
+    rng = np.random.default_rng(19)
+    causal = rng.random(n) < 0.5
+    t_phase = t0 = time.perf_counter()
+    write_snp_bed(bed, names, m, seed=19, causal=(causal_i, causal),
+                  device=device)
+    body = bed_body(bed, n)
+    log(f"snps: bed of {m} SNPs x {n} samples written in "
+        f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(bed + '.bed')}"
+        f" bytes)")
+
+    # (a) SNP kinship
+    from kmersgwas_tpu_torch.snps import kinship as snp_kin
+    with Measured(snp_kin, "emma_kinship_from_bed", device) as mk:
+        K = snp_kin.emma_kinship_from_bed(bed, device=device)
+    pairs = rng.choice(n, size=(96, 2))
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]][:64]
+    t0 = time.perf_counter()
+    want = kinship_pairs_oracle(body, n, pairs, device)
+    err = np.abs(K[pairs[:, 0], pairs[:, 1]] - want).max()
+    need(err <= 1e-12, f"snps: kinship off the numpy oracle by {err:.2e}")
+    need(np.array_equal(K, K.T) and np.all(np.diag(K) == 1.0),
+         "snps: kinship not symmetric with a unit diagonal")
+    log(f"snps (a): emma_kinship_from_bed {mk.calls[0]['wall']:.3f} s "
+        f"({m / mk.calls[0]['wall']:,.0f} SNPs/s), host RSS +"
+        f"{mk.calls[0]['rss'] / 2**20:.0f} MiB, device peak "
+        f"{mk.calls[0]['device'] / 2**30:.2f} GiB; {len(pairs)} pairs "
+        f"within {err:.2e} of a float64 recomputation "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (b) GRAMMAR prefilter: 1 + 100 columns
+    y = np.random.default_rng(20).normal(size=(n, 1 + n_perm))
+    y[:, 0] += 0.5 * (causal - causal.mean()) / causal.std()
+    y = y.astype(np.float32)
+    min_count = max(5.0, math.ceil(0.05 * n))
+    t0 = time.perf_counter()
+    planes = bed_mod.load_bed_planes(bed, names, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    t_planes = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx, scores = assoc.most_associated_snps(planes, y, n_snps, 0.05, 5)
+    t_scores = time.perf_counter() - t0
+    sample = np.sort(rng.choice(m, size=4096, replace=False))
+    want = snp_scores_oracle(body, sample, y.astype(np.float64), min_count)
+    got = scores[torch.as_tensor(sample, device=scores.device)].cpu() \
+        .numpy()
+    tol = 1e-5 * np.abs(want) + 1e-5 * np.abs(want).max(0)
+    need(bool((np.abs(got - want) <= tol).all()),
+         f"snps: scores off numpy float64 by up to "
+         f"{np.abs(got - want).max():.2e}")
+    s64 = snp_scores_f64(planes, y, min_count)
+    top = min(n_snps, m)
+    swaps = count_boundary_swaps(idx, s64, top)
+    need(causal_i in set(idx[0].tolist()), "snps: the causal SNP was not "
+         "selected in the real column")
+    log(f"snps (b): planes {t_planes:.3f} s, scores + top-{top} of "
+        f"{y.shape[1]} columns {t_scores:.3f} s; 4096 sampled SNPs x "
+        f"{y.shape[1]} columns within rtol 1e-5 (+1e-5 of the column's "
+        f"largest) of numpy float64, max |d| "
+        f"{np.abs(got - want).max():.2e}; {sum(swaps)} boundary swaps "
+        f"against the float64 ranking over {y.shape[1]} columns (max "
+        f"{max(swaps)} in a column)")
+    del planes, scores, s64
+
+    # (c) run_gwas with the SNP arm two_steps on the SNP kinship
+    pheno = os.path.join(workdir, "snps.pheno")
+    write_phenotypes(pheno, ["phenotype_value"], names, y[:, :1])
+    out = os.path.join(workdir, "gwas_snps")
+    cfg = gwas_mod.GWASConfig(
+        pheno_path=pheno, kmers_table=main["base"], outdir=out,
+        kmer_len=main["kmer_len"], n_kmers=k, n_permutations=n_perm,
+        batch_size=batch, dtable_cache=main["dtable"], device=device,
+        snps_matrix=bed, run_snps="two_steps", kinship_snps=True,
+        n_snps=n_snps)
+    counters = (score.score_batch_t_topw, score.score_batch_t_bmax,
+                kin_ops.kinship_accumulate)
+    for c in counters:
+        c.launches = 0
+    with Capture(gwas_mod.transform_mod, "transform_and_permute") as ctr, \
+            Measured(gwas_mod.snp_gwas, "run_snp_arm", device) as arm, \
+            Measured(gwas_mod.snp_kinship, "emma_kinship_from_bed",
+                     device) as kin_c:
+        t0 = time.perf_counter()
+        res = gwas_mod.run_gwas(cfg)
+        wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    tr = ctr.calls[0]
+    summ = arm.calls[0]
+    st = summ["result"]["stage_seconds"]
+    n_tests = summ["result"]["n_tests"]
+    log(f"snps (c): run_gwas wall {wall:.2f} s; stage_seconds "
+        + json.dumps({a: round(b, 3) for a, b in res.stage_seconds.items()}))
+    log(f"snps (c): SNP kinship {kin_c.calls[0]['wall']:.3f} s, SNP planes "
+        f"{st['snps.planes']:.3f} s, SNP scores {st['snps.scores']:.3f} s, "
+        f"SNP LMM {st['snps.lmm']:.3f} s ({n_tests} tests, "
+        f"{n_tests / st['snps.lmm']:,.0f} tests/s), SNP artifacts "
+        f"{st['snps.artifacts']:.3f} s; the SNP arm {summ['wall']:.2f} s, "
+        f"peak host RSS increase {summ['rss'] / 2**20:.0f} MiB (SNP "
+        f"kinship {kin_c.calls[0]['rss'] / 2**20:.0f} MiB), peak device "
+        f"memory {summ['device'] / 2**30:.2f} GiB")
+    log(f"snps (c): K1 {launches[0]}, K2 {launches[1]}, K7 {launches[2]} "
+        f"launches; thresholds {res.thresholds}")
+    need(max(summ["rss"], kin_c.calls[0]["rss"]) < 1.5e9,
+         "snps: the SNP arm's host RSS grew by 1.5 GB or more")
+    need(not cuda or (launches[0] > 0 and launches[1] > 0),
+         f"snps: K1 or K2 not launched: {launches}")
+    need(launches[2] == 0, "snps: K7 ran with kinship_snps")
+    K_run = np.loadtxt(os.path.join(out, "pheno.kinship"), delimiter="\t")
+    need(np.array_equal(K_run, K), "snps: run_gwas's SNP kinship differs "
+         "from (a)'s")
+    sdir = os.path.join(out, "snps")
+    best = {}
+    for ln in open(os.path.join(sdir, "best_pvals")):
+        name, v = ln.split("\t")
+        best[name] = float(v)
+    perm = sorted((best[f"P{i}"] for i in range(1, n_perm + 1)),
+                  reverse=True)
+    for key, q in (("5per", 0.05), ("10per", 0.10)):
+        th = perm[int(n_perm * q) - 1]
+        need(open(os.path.join(sdir, f"threshold_{key}")).read()
+             == f"{th:f}\n", f"snps: threshold_{key}")
+    passed = [ln.split("\t")[1] for ln in
+              open(os.path.join(sdir, "pass_threshold_5per"))]
+    need(f"snp{causal_i}" in passed, "snps: the planted SNP does not pass "
+         "the 5 % threshold")
+    # p-values against the scipy oracle: the real column and 3 permutation
+    # columns, 32 SNPs each (the planted one in the real column)
+    t0 = time.perf_counter()
+    d_eig, U_eig = np.linalg.eigh(K_run)
+    worst = 0.0
+    for j in (0, 1, n_perm // 2, n_perm):
+        cname = tr.names[j]
+        rows, _, _, p_file = read_assoc_rows(
+            os.path.join(sdir, "output", f"{cname}.assoc.txt"))
+        pick = rng.choice(len(rows), size=32, replace=False)
+        if j == 0:
+            pick[0] = int(np.nonzero(rows == causal_i)[0][0])
+        yj = tr.phenotypes[:, j] - tr.phenotypes[:, j].mean()
+        want = np.array([ml_lrt_oracle(snp_dose(body, rows[i], np.arange(n)),
+                                       yj, d_eig, U_eig) for i in pick])
+        err = np.abs(p_file[pick] - want) / want
+        worst = max(worst, float(err.max()))
+        need(bool((err <= 1e-4).all()), f"snps: column {cname}: p-values "
+             f"off the scipy oracle by up to {err.max():.2e} (relative)")
+    log(f"snps (c): planted snp{causal_i} passes the 5 % threshold "
+        f"({len(passed)} pass); 4 x 32 p-values within {worst:.2e} "
+        f"(relative; tolerance 1e-4, printed at 7 digits) of the scipy "
+        f"oracle ({time.perf_counter() - t0:.1f} s); the thresholds equal "
+        f"the order statistic of best_pvals")
+
+    # (d) one_step on the first SNP_SMALL SNPs, every column
+    small = os.path.join(workdir, "snps_small")
+    ms = min(SNP_SMALL, m)
+    with open(small + ".bed", "wb") as f:
+        f.write(open(bed + ".bed", "rb").read(3 + ms * (n // 4)))
+    with open(bed + ".bim") as src, open(small + ".bim", "w") as f:
+        for _, ln in zip(range(ms), src):
+            f.write(ln)
+    shutil.copy(bed + ".fam", small + ".fam")
+    out_d = os.path.join(workdir, "snps_one_step")
+    t0 = time.perf_counter()
+    r_d = gwas_mod.snp_gwas.run_snp_arm(
+        small, out_d, names, tr.phenotypes, tr.transformed, tr.names, d_eig,
+        U_eig, mode="one_step", n_snps=n_snps, maf=0.05, mac=5,
+        n_permutations=n_perm, device=device)
+    wall_d = time.perf_counter() - t0
+    rows_c, _, _, p_c = read_assoc_rows(
+        os.path.join(sdir, "output", "phenotype_value.assoc.txt"))
+    rows_d, _, _, p_d = read_assoc_rows(
+        os.path.join(out_d, "snps", "output", "phenotype_value.assoc.txt"))
+    head = rows_c < ms
+    need(np.array_equal(rows_d, rows_c[head]), "snps (d): the real column's "
+         "SNPs differ from (c)'s")
+    need(np.allclose(p_d, p_c[head], rtol=1e-5, atol=0),
+         "snps (d): real-column p-values differ from (c)'s")
+    for cname in tr.names:
+        rows_j, _, _, p_j = read_assoc_rows(
+            os.path.join(out_d, "snps", "output", f"{cname}.assoc.txt"))
+        need(np.array_equal(rows_j, rows_d) and np.isfinite(p_j).all(),
+             f"snps (d): column {cname}")
+    st_d = r_d["stage_seconds"]
+    log(f"snps (d): one_step on {ms} SNPs x {len(tr.names)} columns: "
+        f"{r_d['n_tests']} tests, LMM {st_d['snps.lmm']:.3f} s "
+        f"({r_d['n_tests'] / st_d['snps.lmm']:,.0f} tests/s), artifacts "
+        f"{st_d['snps.artifacts']:.3f} s, wall {wall_d:.2f} s; the real "
+        f"column equal to (c)'s")
+    del body
+    phase_snps_cli(workdir, devices=(device, "cpu"))
+    log(f"snps: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(k1=launches[0], k2=launches[1])
+
+
+def phase_snps_cli(workdir, devices=("cuda", "cpu"), m=20_000, n_perm=10):
+    """Phase 19 (e): kinship-bed, associate-snps (dyadic phenotypes, so
+    the float32 scores and their top-N are the same on both devices) and
+    gwas --snp_matrix --run_on_snps_two_steps --kinship_snps on phase 5's
+    table (N=200), --device cuda against --device cpu: stdout and files
+    byte-identical, but those holding full floats, times or the exact
+    LMM's l_mle and p_lrt (compare_gwas_outputs). The commands run through
+    the CLI's entry point in this process (phases 5, 9 and 18 start the
+    CLI as a new process; each start costs ~9 s on the card)."""
+    import contextlib
+    import io
+    from kmersgwas_tpu_torch.cli.__main__ import main as cli_main
+    table = os.path.join(workdir, "small")
+    names = [ln.strip() for ln in open(table + ".names")]
+    need(len(names) == 200, "snps cli: phase 5's table is missing")
+    bed = os.path.join(workdir, "snps_cli")
+    write_snp_bed(bed, names, m, seed=21,
+                  device="cuda" if devices[0] == "cuda" else "cpu")
+    pheno_t = os.path.join(workdir, "snps_cli_t.pheno")
+    write_phenotypes(pheno_t, ["phenotype_value"] + [f"P{i}" for i in
+                                                       range(1, n_perm + 1)],
+                     names, dyadic(np.random.default_rng(22),
+                                   (len(names), 1 + n_perm)))
+    pheno = os.path.join(workdir, "snps_cli.pheno")
+    write_gwas_phenotype(pheno, names, seed=23)
+    outs = []
+    for i, dev in enumerate(devices):
+        if os.path.exists(bed + ".kinship"):
+            os.remove(bed + ".kinship")      # each run computes kinship
+        out = os.path.join(workdir, f"snps_cli_{i}_{dev}")
+        os.makedirs(out)
+        runs = [("kinship-bed", [bed]),
+                ("associate-snps", [pheno_t, bed, os.path.join(out, "sel"),
+                                    "1000", "0.05", "5"]),
+                ("gwas", ["--pheno", pheno, "--kmers_table", table,
+                          "--outdir", os.path.join(out, "gwas"), "-l", "31",
+                          "-k", "100", "--permutations", str(n_perm),
+                          "--batch_size", "4096", "--score_precision",
+                          "highest", "--certify_topk", "--snp_matrix", bed,
+                          "--run_on_snps_two_steps", "--snps_number", "1000",
+                          "--kinship_snps"])]
+        for cmd, args in runs:
+            t0 = time.perf_counter()
+            stdout = io.StringIO()
+            with contextlib.redirect_stdout(stdout):
+                cli_main([cmd] + args + ["--device", dev])
+            if cmd == "kinship-bed":
+                with open(os.path.join(out, "kinship_bed.txt"), "w") as f:
+                    f.write(stdout.getvalue())
+            log(f"snps cli: {cmd} --device {dev} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        outs.append(gwas_outputs(out))
+    n_same, n_diff = compare_gwas_outputs(*outs, prefix="gwas/",
+                                          lmm_rtol=LMM_RTOL,
+                                          kinship_atol=1e-12)
+    need("kinship_bed.txt" in outs[0] and "sel.P10.bed" in outs[0],
+         "snps cli: outputs missing")
+    log(f"snps cli: {n_same} files byte-identical between --device "
+        f"{devices[0]} and --device {devices[1]} (kinship-bed's stdout, "
+        f"associate-snps' bed/bim); the parsed ones within their "
+        f"tolerances ({n_diff} lines differ in bytes)")
+
+
+# ---------------------------------------------------------------- phase 20
+
+def emma_inputs(K, m, g, seed):
+    """(ys (g, n), xs (m, n)) for phase 20: doses 0 / 0.5 / 1 at a minor
+    allele frequency uniform in [0.05, 0.5] per variant; NaNs in about 1 %
+    of the xs entries: 20 samples missing in every other block of 256
+    variants (a genotyping batch that lost them), and 1 to 4 missing in
+    each of 32 variants of the complete blocks, each its own subset; and
+    10 NaNs in the second ys row."""
+    n = K.shape[0]
+    rng = np.random.default_rng(seed)
+    maf = rng.uniform(0.05, 0.5, size=(m, 1))
+    u = rng.random((m, n))
+    xs = np.where(u < maf * maf, 1.0, np.where(u < 2 * maf - maf * maf,
+                                               0.5, 0.0))
+    for b in range(0, m // 256, 2):
+        xs[b * 256:(b + 1) * 256, rng.choice(n, 20, replace=False)] = np.nan
+    singles = 256 + rng.choice(256, 32, replace=False)
+    for i in singles:
+        xs[i, rng.choice(n, 1 + i % 4, replace=False)] = np.nan
+    ys = rng.normal(size=(g, n)) + 0.3 * (xs[0] > 0)
+    ys[1, rng.choice(n, 10, replace=False)] = np.nan
+    return ys, xs, singles
+
+
+def phase_emma(main, kin, m=4096, g=2, n_cpu=128, device="cuda"):
+    """The EMMA library on the card at n = 1008 (phase 8's kinship):
+    emma_ML_LRT and emma_REML_t over m = 4096 variants and g = 2 rows
+    (emma_inputs: NaNs in ~1 % of the xs entries and in one ys row), held
+    to the port's own CPU float64 run on n_cpu sampled variants (8 of the
+    single-subset ones, 64 from blocks with NaNs, the rest complete); then
+    calc_gamma on phase 3's table, card against CPU."""
+    import torch
+    from kmersgwas_tpu_torch.stats import emma
+    from kmersgwas_tpu_torch.stats.gamma import calc_gamma
+    K = kin["K"]
+    n = K.shape[0]
+    ys, xs, singles = emma_inputs(K, m, g, seed=20)
+    rng = np.random.default_rng(21)
+    nan_rows = np.nonzero(np.isnan(xs).any(1))[0]
+    # the CPU pays an eigendecomposition per subset: 8 single-subset
+    # variants (every size), 64 of blocks 0 and 2, the rest complete
+    clean = np.setdiff1d(np.arange(256, 512), singles)
+    pick = np.sort(np.concatenate([
+        singles[:8], rng.choice(256, 32, replace=False),
+        512 + rng.choice(256, 32, replace=False),
+        rng.choice(clean, n_cpu - 72, replace=False)]))
+    log(f"emma: n={n}, m={m}, g={g}: {np.isnan(xs).mean() * 100:.3f} % of "
+        f"the xs entries NaN, {len(nan_rows)} variants with NaNs, "
+        f"{int(np.isnan(ys).sum())} NaNs in ys; the CPU run on {len(pick)} "
+        f"variants ({int(np.isin(pick, nan_rows).sum())} with NaNs)")
+    # rtol per field: vg and ve move with the root of a flat likelihood
+    tols = {"vgs": 1e-6, "ves": 1e-6}
+    for fn in (emma.emma_ML_LRT, emma.emma_REML_t):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(ys, xs, K, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = fn(ys, xs[pick], K, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        diffs = {}
+        for key, w in want.items():
+            a = got[key].cpu().numpy()[pick]
+            w = w.numpy()
+            need(a.shape == w.shape and np.array_equal(np.isnan(a),
+                                                       np.isnan(w)),
+                 f"emma {fn.__name__}: {key} shapes or NaNs differ")
+            ok = ~np.isnan(w)
+            rel = np.abs(a[ok] - w[ok]) / np.maximum(np.abs(w[ok]), 1e-300)
+            diffs[key] = float(rel.max()) if rel.size else 0.0
+            atol = 1e-8 if key == "stats" else 0.0
+            need(np.allclose(a[ok], w[ok], rtol=tols.get(key, 1e-8),
+                             atol=atol),
+                 f"emma {fn.__name__}: {key} off the CPU run by up to "
+                 f"{diffs[key]:.2e} (relative)")
+        ps = got["ps"].cpu().numpy()
+        need(ps.shape == (m, g) and bool(((ps >= 0) & (ps <= 1)).all()),
+             f"emma {fn.__name__}: p-values out of [0, 1]")
+        log(f"emma: {fn.__name__} on the card {t_dev:.2f} s "
+            f"({m * g / t_dev:,.0f} tests/s), the CPU on {len(pick)} "
+            f"variants {t_cpu:.2f} s; max relative differences "
+            + json.dumps({k: float(f"{v:.3g}") for k, v in diffs.items()}))
+    Vinv = np.linalg.inv(0.5 * K + 0.5 * np.eye(n))
+    vals = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        vals[dev] = calc_gamma(main["base"], Vinv, min_count=51,
+                               names_to_use=main["names"], device=dev)
+        log(f"emma: calc_gamma --device {dev} {vals[dev]!r} "
+            f"({time.perf_counter() - t0:.2f} s)")
+    need(math.isclose(vals[device], vals["cpu"], rel_tol=1e-5),
+         "emma: calc_gamma differs between the card and the CPU")
 
 
 # ---------------------------------------------------------------- record
@@ -2790,6 +3473,14 @@ def kernel_bounds(peaks, rows=2_097_152, n_used=1008, n_pad=1024, p=101,
 
 # ---------------------------------------------------------------- main
 
+def timed(phase, *args, **kw):
+    """phase(*args, **kw), its wall time logged."""
+    t0 = time.perf_counter()
+    r = phase(*args, **kw)
+    log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def main():
     try:
         import torch
@@ -2817,26 +3508,28 @@ def main():
     os.makedirs(build, exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="smoke_", dir=build)
     try:
-        env = phase_env()
-        kres = phase_kernels()
-        mres = phase_main(workdir)
-        phase_stream("cand_w")
-        phase_stream("cand_c", n_batches=240)
-        phase_cli(workdir)
-        pres = phase_mp(mres)
-        phase_mp_cli(workdir, mres)
-        kin = phase_kinship(mres, workdir)
-        phase_kinship_cli(workdir)
-        phase_kinship_mp(workdir, mres, kin)
-        sres = phase_scan_step()
-        bres = phase_score_batch()
-        gres = phase_gen()
-        bench_res = phase_bench(workdir)
-        phase_at_scale(workdir)
-        k9res = phase_probe_kernels()
-        k8res = phase_probes()
-        gw = phase_gwas(mres, workdir, kin)
-        phase_gwas_cli(workdir)
+        env = timed(phase_env)
+        kres = timed(phase_kernels)
+        mres = timed(phase_main, workdir)
+        timed(phase_stream, "cand_w")
+        timed(phase_stream, "cand_c", n_batches=240)
+        timed(phase_cli, workdir)
+        pres = timed(phase_mp, mres)
+        timed(phase_mp_cli, workdir, mres)
+        kin = timed(phase_kinship, mres, workdir)
+        timed(phase_kinship_cli, workdir)
+        timed(phase_kinship_mp, workdir, mres, kin)
+        sres = timed(phase_scan_step)
+        bres = timed(phase_score_batch)
+        gres = timed(phase_gen)
+        bench_res = timed(phase_bench, workdir)
+        timed(phase_at_scale, workdir)
+        k9res = timed(phase_probe_kernels)
+        k8res = timed(phase_probes)
+        gw = timed(phase_gwas, mres, workdir, kin)
+        timed(phase_gwas_cli, workdir)
+        snp = timed(phase_snps, mres, workdir)
+        timed(phase_emma, mres, kin)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2846,12 +3539,13 @@ def main():
         print("FAIL: jax was imported", file=sys.stderr)
         return 1
     t, e = kres["times"], kres["errs"]
-    # K1, K2 and K7 run on two paths: the scan (phase 3) or kinship (phase
-    # 8), and gwas (phase 18)
+    # K1, K2 and K7 run on several paths: the scan (phase 3) or kinship
+    # (phase 8), gwas (phase 18) and, K1 and K2, gwas with the SNP arm
+    # (phase 19)
     rows = [("score_topw", TOPW_SOURCE, TOPW_REPLACES,
-             mres["k1"] + gw["k1"], e[0], t[0], t[1]),
+             mres["k1"] + gw["k1"] + snp["k1"], e[0], t[0], t[1]),
             ("score_bmax", BMAX_SOURCE, BMAX_REPLACES,
-             mres["k2"] + gw["k2"], e[1], t[2], t[3]),
+             mres["k2"] + gw["k2"] + snp["k2"], e[1], t[2], t[3]),
             ("score_tilemax", TILEMAX_SOURCE, TILEMAX_REPLACES, pres["k3"],
              e[2], t[4], t[5]),
             ("score_t", SCORE_T_SOURCE, SCORE_T_REPLACES, sres["k4"], e[3],

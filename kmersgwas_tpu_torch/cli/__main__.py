@@ -1,7 +1,8 @@
 """CLI dispatcher: `python -m kmersgwas_tpu_torch.cli <command> [...]`.
 
 Port of kmersgwas_tpu/cli/__main__.py; `gwas`, `associate`,
-`associate-mp`, `kinship` and `kinship-mp` are ported so far.
+`associate-mp`, `kinship`, `kinship-mp`, `kinship-bed` and
+`associate-snps` are ported so far.
 """
 from __future__ import annotations
 
@@ -27,10 +28,10 @@ def _add_gwas(sub):
     p.add_argument("--kinship", default=None, help="precomputed kinship TSV")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where kinship, the scan and the exact LMM run "
-                        "(cuda raises without a card)")
+                   help="where kinship, the scan, the exact LMM and the "
+                        "SNP arm run (cuda raises without a card)")
     p.add_argument("--snp_matrix", default=None,
-                   help="PLINK base for the SNP arm (not ported: raises)")
+                   help="PLINK base for the SNP arm")
     p.add_argument("--run_on_snps_one_step", action="store_true")
     p.add_argument("--run_on_snps_two_steps", action="store_true")
     p.add_argument("--snps_number", type=int, default=10001)
@@ -38,8 +39,8 @@ def _add_gwas(sub):
     p.add_argument("--dtable_cache", default=None,
                    help="path for the device-native packed table cache")
     p.add_argument("--kinship_snps", action="store_true",
-                   help="use kinship from the SNP matrix (not ported: "
-                        "raises)")
+                   help="use kinship from the SNP matrix (requires "
+                        "--snp_matrix)")
     p.add_argument("--kmers_for_no_perm_phenotype", type=int, default=None,
                    dest="n_extra_phenotype_kmers",
                    help="heap size override for the real (non-permuted) "
@@ -315,6 +316,44 @@ def _add_kinship_mp(sub):
     p.set_defaults(func=run)
 
 
+def _add_kinship_bed(sub):
+    p = sub.add_parser("kinship-bed",
+                       help="EMMA kinship from a PLINK bed (emma_kinship)")
+    p.add_argument("bedbim_base")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the Gram runs (cuda raises without a card)")
+
+    def run(a):
+        from ..snps.kinship import emma_kinship_from_bed
+        K = emma_kinship_from_bed(a.bedbim_base, device=a.device)
+        for row in K:
+            sys.stdout.write("\t".join(f"{v:g}" for v in row) + "\n")
+    p.set_defaults(func=run)
+
+
+def _add_associate_snps(sub):
+    p = sub.add_parser("associate-snps",
+                       help="GRAMMAR-approximate SNP prefilter "
+                            "(associate_snps)")
+    p.add_argument("phenotypes_file")
+    p.add_argument("bedbim_base")
+    p.add_argument("output_base")
+    p.add_argument("n_snps", type=int)
+    p.add_argument("maf", type=float)
+    p.add_argument("mac", type=float)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the scores run (cuda raises without a card)")
+
+    def run(a):
+        from ..core import formats
+        from ..snps.assoc import associate_snps
+        pheno = formats.read_phenotypes(a.phenotypes_file)
+        associate_snps(a.bedbim_base, pheno.accessions, pheno.values,
+                       pheno.names, a.output_base, a.n_snps, a.maf, a.mac,
+                       device=a.device)
+    p.set_defaults(func=run)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="kmersgwas_tpu_torch",
@@ -325,6 +364,8 @@ def main(argv=None):
     _add_associate_mp(sub)
     _add_kinship(sub)
     _add_kinship_mp(sub)
+    _add_kinship_bed(sub)
+    _add_associate_snps(sub)
     args = ap.parse_args(argv)
     return args.func(args)
 

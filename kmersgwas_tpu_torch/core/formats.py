@@ -261,6 +261,36 @@ def read_bed(base_name: str):
     return names, dubits.reshape(rows.shape[0], -1)[:, :n]
 
 
+def read_bed_header(base_name: str):
+    """(fam sample names, number of SNPs) of a PLINK bed, from its magic
+    and size: nothing of the genotype body is read."""
+    names = read_fam_names(base_name + ".fam")
+    bpr = (len(names) + 3) // 4
+    with open(base_name + ".bed", "rb") as f:
+        if f.read(3) != PLINK_BED_MAGIC:
+            raise ValueError("bad PLINK bed magic")
+        body = f.seek(0, 2) - 3
+    if bpr == 0 or body % bpr:
+        raise ValueError(f"bed body of {body} bytes is not a whole number "
+                         f"of {bpr}-byte SNP rows")
+    return names, body // bpr
+
+
+def iter_bed_rows(base_name: str, chunk: int):
+    """Yield (start, rows) over a PLINK bed, rows the (c <= chunk,
+    ceil(n/4)) uint8 genotype bytes of SNPs start:start+c (sample j in
+    bits 2(j%4)..2(j%4)+1 of byte j//4, as read_bed decodes them). Only one
+    chunk is held at a time."""
+    names, m = read_bed_header(base_name)
+    bpr = (len(names) + 3) // 4
+    with open(base_name + ".bed", "rb") as f:
+        f.seek(len(PLINK_BED_MAGIC))
+        for start in range(0, m, chunk):
+            c = min(chunk, m - start)
+            yield start, np.fromfile(f, dtype=np.uint8,
+                                     count=c * bpr).reshape(c, bpr)
+
+
 # ---------------------------------------------------------------------------
 # Best-associations dumps (src/best_associations_heap.cpp:67-92)
 # ---------------------------------------------------------------------------

@@ -5,17 +5,20 @@ kmersgwas_tpu/pipeline/gwas.py; the reference's kmers_gwas.py:50-274).
   2. intersect phenotype x kinship x table accessions (align_kinship_phenotype.py)
   3. REML variance components, covariance-preserving permutations,
      GRAMMAR transform                                (transform_and_permute_phenotypes.R)
+  3b. optional SNP arm: bed planes, the GRAMMAR prefilter and the exact
+     LMM on the SNPs                                 (kmers_gwas.py:170-223)
   4. association scan on the card, top-k per column  (associate_kmers)
   5. exact ML-LRT mixed model on the candidates       (GEMMA -lmm 2 farm)
   6. permutation thresholds + pass_threshold files    (functions.py awk post-processing)
 
-Where each stage runs: kinship (K7), the scan (K1, K2) and the exact LMM
-on `cfg.device`; stage 3 in float64 on the host CPU, where the JAX package
+Where each stage runs: kinship (K7, or from the SNP bed with
+`kinship_snps`), the scan (K1, K2), the exact LMM and the SNP arm on
+`cfg.device`; stage 3 in float64 on the host CPU, where the JAX package
 pins it too (stats/transform.py says why). "cuda" without a card raises;
 no stage moves to the CPU when the card is missing or a kernel fails.
 
-Artifacts carry the reference's names under `outdir`. The SNP arm and the
-multi-process `run_distributed_gwas` are not ported yet.
+Artifacts carry the reference's names under `outdir`. The multi-process
+`run_distributed_gwas` is not ported yet.
 """
 from __future__ import annotations
 
@@ -33,11 +36,13 @@ import numpy as np
 import torch
 
 from ..core import codec, formats
+from ..snps import kinship as snp_kinship
 from ..stats import lmm as lmm_mod
 from ..stats import transform as transform_mod
 from ..utils import StageTimer, require_device
 from . import kinship as kinship_mod
 from . import scan as scan_mod
+from . import snp_gwas
 from .align import average_phenotypes, intersect_accessions
 
 
@@ -68,12 +73,12 @@ class GWASConfig:
                                         # packed bits + float32 on `device`;
                                         # auto picks device32 for large
                                         # candidate sets on the card
-    run_kmers: bool = True              # False, snps_matrix, run_snps and
-    snps_matrix: str | None = None      # kinship_snps need the SNP arm,
-    run_snps: str | None = None         # which is not ported: they raise
+    run_kmers: bool = True              # False: stop after the SNP arm
+    snps_matrix: str | None = None      # PLINK base of the SNP arm
+    run_snps: str | None = None         # None | "one_step" | "two_steps"
     n_snps: int = 10001
     dtable_cache: str | None = None
-    kinship_snps: bool = False
+    kinship_snps: bool = False          # kinship from snps_matrix
     n_extra_phenotype_kmers: int | None = None  # heap size override for the
                                         # real phenotype column
                                         # (--kmers_for_no_perm_phenotype)
@@ -120,11 +125,6 @@ def _persist_kinship(cfg: GWASConfig, out: Path, K_full, log) -> None:
 
 
 def _refuse_unported(cfg: GWASConfig) -> None:
-    if cfg.run_snps or cfg.snps_matrix or cfg.kinship_snps \
-            or not cfg.run_kmers:
-        raise NotImplementedError(
-            "the SNP arm (snps_matrix, run_snps, kinship_snps, "
-            "run_kmers=False) is not ported to kmersgwas_tpu_torch")
     if cfg.n_devices and cfg.n_devices > 1:
         raise NotImplementedError(
             "kmersgwas_tpu_torch runs single-device gwas only")
@@ -156,10 +156,24 @@ def run_gwas(cfg: GWASConfig) -> GWASResult:
     accs, vals = average_phenotypes(pheno.accessions, pheno.values[:, 0])
     table_names = formats.read_names(cfg.kmers_table)
 
-    # 2. kinship (precomputed > cached beside the table > from the table)
-    # + intersection
+    # 2. kinship (precomputed > from the SNP matrix with kinship_snps >
+    # cached beside the table > from the table) + intersection. The SNP
+    # kinship is cached beside the bed and follows the .fam's order
+    # (kmers_gwas.py:68-87)
+    kin_names = table_names
     if cfg.kinship_path:
         K_full = kinship_mod.read_kinship(cfg.kinship_path)
+    elif cfg.kinship_snps and cfg.snps_matrix:
+        kin_names = formats.read_fam_names(cfg.snps_matrix + ".fam")
+        if os.path.exists(cfg.snps_matrix + ".kinship"):
+            K_full = kinship_mod.read_kinship(cfg.snps_matrix + ".kinship")
+            log("Using kinship calculated on SNPs")
+        else:
+            log("computing kinship from SNP matrix")
+            with stage("snp_kinship"):
+                K_full = snp_kinship.emma_kinship_from_bed(cfg.snps_matrix,
+                                                           device=dev)
+            kinship_mod.write_kinship(cfg.snps_matrix + ".kinship", K_full)
     elif os.path.exists(cfg.kmers_table + ".kinship"):
         K_full = kinship_mod.read_kinship(cfg.kmers_table + ".kinship")
     else:
@@ -175,7 +189,7 @@ def run_gwas(cfg: GWASConfig) -> GWASResult:
                 checkpoint_every=cfg.checkpoint_every)
         _persist_kinship(cfg, out, K_full, log)
 
-    used, y, K = intersect_accessions(accs, vals, table_names, K_full,
+    used, y, K = intersect_accessions(accs, vals, kin_names, K_full,
                                       table_names)
     n = len(used)
     if n < cfg.min_data_points:
@@ -197,6 +211,30 @@ def run_gwas(cfg: GWASConfig) -> GWASResult:
     formats.write_phenotypes(out / "pheno.phenotypes_permuted_transformed",
                              formats.PhenotypeTable(tr.names, used,
                                                     tr.transformed))
+
+    # 3b. optional SNP arm (kmers_gwas.py:179-223)
+    snp_summary = {}
+    if cfg.run_snps:
+        if cfg.snps_matrix is None:
+            raise ValueError("run_snps requires snps_matrix")
+        w_eig_s, U_eig_s = np.linalg.eigh(K)
+        snp_summary = snp_gwas.run_snp_arm(
+            cfg.snps_matrix, cfg.outdir, used, tr.phenotypes,
+            tr.transformed, tr.names, w_eig_s, U_eig_s, mode=cfg.run_snps,
+            n_snps=cfg.n_snps, maf=cfg.maf, mac=cfg.mac,
+            n_permutations=cfg.n_permutations, lmm_grid=cfg.lmm_grid,
+            lmm_refine=cfg.lmm_refine, device=dev)
+        for name, v in snp_summary["stage_seconds"].items():
+            stage_seconds[name] = v
+            log(f"[stage] {name}: {v:.2f}s")
+        log(f"snps: {snp_summary['n_tests']} exact LMM tests")
+
+    if not cfg.run_kmers:
+        (out / "log_file").write_text("\n".join(log_lines) + "\n")
+        return GWASResult(thresholds=snp_summary.get("thresholds", {}),
+                          best_pvals=snp_summary.get("best_pvals", {}),
+                          heritability=tr.heritability,
+                          stage_seconds=stage_seconds)
 
     # 4. association scan -> top-k per column
     kmers_dir = out / "kmers"

@@ -606,3 +606,113 @@ def test_run_gwas_without_a_card_raises(monkeypatch, tmp_path):
         main(["gwas", "--pheno", "absent.tsv", "--kmers_table", "absent",
               "--outdir", str(tmp_path / "cli"), "-l", "31"])
     assert not (tmp_path / "out").exists()
+
+
+def smoke():
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_snp_arm_on_card_equals_cpu(cuda, tmp_path):
+    """The SNP arm's pieces on the card against the CPU: the planes bit
+    for bit, the GRAMMAR scores and their top-N on dyadic phenotypes, the
+    SNP kinship within atol 1e-12, and run_snp_arm in both modes
+    (the assoc tables' l_mle and p_lrt within chip_smoke.LMM_RTOL)."""
+    from kmersgwas_tpu_torch.pipeline import snp_gwas
+    from kmersgwas_tpu_torch.snps import assoc, bed
+    from kmersgwas_tpu_torch.snps import kinship as snp_kinship
+    s = smoke()
+    rng = np.random.default_rng(30)
+    n, m = 200, 6000
+    names = [f"s{i}" for i in range(n)]
+    base = str(tmp_path / "snps")
+    s.write_snp_bed(base, names, m, seed=3,
+                    causal=(123, rng.random(n) < 0.5), device="cuda")
+    use = names[::-1][:180]
+    pc, pg = (bed.load_bed_planes(base, use, device=d)
+              for d in ("cpu", "cuda"))
+    for f in ("presence", "nonmiss", "het", "s_gi", "s_gi2", "total"):
+        assert torch.equal(getattr(pg, f).cpu(), getattr(pc, f)), f
+    y = np.clip(np.round(rng.normal(size=(180, 5)) * 32), -255, 255) / 32
+    ic, sc = assoc.most_associated_snps(pc, y, 300, 0.05, 5)
+    ig, sg = assoc.most_associated_snps(pg, y, 300, 0.05, 5)
+    assert torch.equal(sg.cpu(), sc)
+    assert all(np.array_equal(a, b) for a, b in zip(ig, ic))
+    np.testing.assert_allclose(
+        snp_kinship.emma_kinship_from_bed(base, device="cuda"),
+        snp_kinship.emma_kinship_from_bed(base, device="cpu"), rtol=0,
+        atol=1e-12)
+    G0 = rng.normal(size=(180, 360))
+    w, U = np.linalg.eigh(G0 @ G0.T / 360)
+    yu = rng.normal(size=(180, 6))
+    yt = np.clip(np.round(rng.normal(size=(180, 6)) * 32), -255, 255) / 32
+    cols = ["phenotype_value"] + [f"P{i}" for i in range(1, 6)]
+    for mode in ("one_step", "two_steps"):
+        outs = []
+        for d in ("cuda", "cpu"):
+            snp_gwas.run_snp_arm(base, str(tmp_path / f"{mode}_{d}"), use,
+                                 yu, yt, cols, w, U, mode=mode, n_snps=500,
+                                 maf=0.05, mac=5, n_permutations=5,
+                                 device=d)
+            outs.append(s.gwas_outputs(str(tmp_path / f"{mode}_{d}")))
+        a, b = outs
+        assert sorted(a) == sorted(b) and "snps/best_pvals" in a
+        for f in a:
+            la, lb = a[f].decode().splitlines(), b[f].decode().splitlines()
+            assert len(la) == len(lb), f
+            if f == "snps/best_pvals" or f.startswith("snps/threshold"):
+                # -log10 of a best p-value
+                for x, z in zip(la, lb):
+                    assert np.isclose(float(x.split("\t")[-1]),
+                                      float(z.split("\t")[-1]), rtol=1e-6,
+                                      atol=0), f
+                continue
+            for x, z in zip(la[1:] if "assoc" in f else la,
+                            lb[1:] if "assoc" in f else lb):
+                x, z = x.split("\t"), z.split("\t")
+                assert x[:7] == z[:7], f
+                for v, u, r in zip(x[7:], z[7:], s.LMM_RTOL):
+                    assert np.isclose(float(v), float(u), rtol=r, atol=0), f
+
+
+def test_emma_on_card_equals_cpu(cuda):
+    """emma_ML_LRT and emma_REML_t on the card against the CPU at n=100,
+    with phase 20's NaN pattern (blocks, single subsets, a ys row)."""
+    from kmersgwas_tpu_torch.stats import emma
+    s = smoke()
+    rng = np.random.default_rng(31)
+    G0 = rng.normal(size=(100, 300))
+    K = G0 @ G0.T / 300
+    K /= np.diag(K).mean()
+    ys, xs, _ = s.emma_inputs(K, 512, 2, seed=32)
+    for fn in (emma.emma_ML_LRT, emma.emma_REML_t):
+        got, want = (fn(ys, xs, K, device=d) for d in ("cuda", "cpu"))
+        for key, w in want.items():
+            g, w = got[key].cpu().numpy(), w.numpy()
+            assert np.array_equal(np.isnan(g), np.isnan(w)), key
+            ok = ~np.isnan(w)
+            np.testing.assert_allclose(
+                g[ok], w[ok], rtol=1e-6 if key in ("vgs", "ves") else 1e-8,
+                atol=1e-8 if key == "stats" else 0, err_msg=key)
+
+
+def test_calc_gamma_and_emma_kinship_on_card_equal_cpu(cuda, tmp_path):
+    from kmersgwas_tpu_torch.stats import emma
+    from kmersgwas_tpu_torch.stats.gamma import calc_gamma
+    rng = np.random.default_rng(33)
+    base, names = write_table(tmp_path, rng, 150, 30_000, 31)
+    A = rng.normal(size=(150, 150))
+    Vinv = A @ A.T / 150
+    got, want = (calc_gamma(base, Vinv, min_count=8, batch_size=4096,
+                            device=d) for d in ("cuda", "cpu"))
+    assert np.isclose(got, want, rtol=1e-5)
+    S = rng.choice([0.0, 0.5, 1.0, np.nan], size=(500, 60),
+                   p=[0.45, 0.1, 0.43, 0.02])
+    for method in ("additive", "dominant", "recessive"):
+        np.testing.assert_allclose(
+            emma.emma_kinship(S, method, device="cuda").cpu().numpy(),
+            emma.emma_kinship(S, method, device="cpu").numpy(), rtol=0,
+            atol=1e-12)

@@ -14,9 +14,11 @@ floats and are parsed (rtol 1e-9), as is assoc.txt (l_mle and p_lrt at
 rtol 1e-6; k-mer, rank and af equal).
 """
 import gzip
+import io
 import json
 import math
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -31,6 +33,8 @@ from kmersgwas_tpu_torch.cli.__main__ import main as port_cli
 from kmersgwas_tpu_torch.pipeline import scan as pscan
 
 from test_pipeline import K, build_population
+from test_torch_snps import (assert_lmm_fields, assert_same_snp_artifacts,
+                             random_dubits, write_bed)
 
 KW = dict(kmer_len=K, n_kmers=30, n_permutations=20, maf=0.05, mac=2,
           batch_size=500, min_data_points=10, lmm_grid=32, lmm_refine=25)
@@ -79,9 +83,16 @@ def parse_assoc(raw):
     return rows[1:]
 
 
-def assert_same_artifacts(got, want):
+def assert_lmm_close(a, b):
+    """l_mle and p_lrt strings at rtol 1e-6 (module docstring)."""
+    np.testing.assert_allclose([float(v) for v in a],
+                               [float(v) for v in b], rtol=1e-6)
+
+
+def assert_same_artifacts(got, want, lmm_fields=assert_lmm_close):
     """Byte-identical but for the full-float and timing files; those
-    parsed (module docstring)."""
+    parsed (module docstring), assoc.txt's l_mle and p_lrt by
+    `lmm_fields`."""
     assert sorted(got) == sorted(want)
     parsed = [f for f in want if f in ("summary.json", "log_file",
                                        "kmers/best_pvals")
@@ -98,8 +109,7 @@ def assert_same_artifacts(got, want):
         assert len(g) == len(w) > 0
         for a, b in zip(g, w):
             assert a[:7] == b[:7], f          # k-mer_rank, af
-            np.testing.assert_allclose([float(a[7]), float(a[8])],
-                                       [float(b[7]), float(b[8])], rtol=1e-6)
+            lmm_fields(a[7:], b[7:])
     bg, bw = (dict(ln.split("\t") for ln in x["kmers/best_pvals"].decode()
                    .splitlines()) for x in (got, want))
     assert list(bg) == list(bw)
@@ -297,11 +307,6 @@ def test_lmm_backend_rule():
 
 @pytest.mark.parametrize("flags", [
     ["--devices", "2"],
-    ["--snp_matrix", "snps"],
-    ["--snp_matrix", "snps", "--run_on_snps_one_step"],
-    ["--snp_matrix", "snps", "--run_on_snps_two_steps"],
-    ["--snp_matrix", "snps", "--kinship_snps"],
-    ["--dont_run_on_kmers"],
 ])
 def test_cli_gwas_refuses_what_is_not_ported(tmp_path, pop, flags):
     with pytest.raises(NotImplementedError):
@@ -310,3 +315,133 @@ def test_cli_gwas_refuses_what_is_not_ported(tmp_path, pop, flags):
                   str(tmp_path / "out"), "-l", str(K), "--device", "cpu"]
                  + flags)
     assert not (tmp_path / "out").exists()
+
+
+@pytest.fixture(scope="module")
+def snp_bed(tmp_path_factory, pop):
+    """A 200-SNP bed over the population's accessions (hom, het and
+    missing calls), SNP 17 planted as the causal k-mer's pattern."""
+    rng = np.random.default_rng(23)
+    d = random_dubits(rng, 200, len(pop["names"]))
+    d[17] = np.where(pop["presence"][pop["causal_idx"]], 3, 0)
+    return write_bed(str(tmp_path_factory.mktemp("bed") / "snps"), d,
+                     pop["names"])
+
+
+def split_tree(files):
+    snps = {f: v for f, v in files.items() if f.startswith("snps/")}
+    return {f: v for f, v in files.items() if f not in snps}, snps
+
+
+@pytest.mark.parametrize("flags", [
+    ["--snp_matrix", "snps"],
+    ["--snp_matrix", "snps", "--run_on_snps_one_step"],
+    ["--snp_matrix", "snps", "--run_on_snps_two_steps"],
+    ["--snp_matrix", "snps", "--kinship_snps"],
+    ["--dont_run_on_kmers"],
+])
+def test_cli_gwas_snp_flags_match_jax_cli(tmp_path, pop, snp_bed,
+                                          shared_transform, capsys, flags):
+    """Each SNP flag set runs in both CLIs, each on its own copy of the
+    bed (the SNP kinship is cached beside it): the same files, the k-mer
+    artifacts as in test_cli_gwas_matches_jax_cli, the snps/ ones as in
+    tests/test_torch_snps.py, the SNP kinship within atol 1e-12."""
+    lines, trees = {}, {}
+    for pkg, cli, extra in (("jax", jax_cli, []),
+                            ("port", port_cli, ["--device", "cpu"])):
+        (tmp_path / pkg).mkdir()
+        base = str(tmp_path / pkg / "snps")
+        for ext in (".bed", ".bim", ".fam"):
+            shutil.copy(snp_bed + ext, base + ext)
+        cli(["gwas", "--outdir", str(tmp_path / f"out_{pkg}"), "--pheno",
+             str(pop["pheno_path"]), "--kmers_table", pop["base"], "-l",
+             str(K), "-k", "30", "--permutations", "10", "--mac", "2",
+             "--min_data_points", "10", "--batch_size", "500",
+             "--snps_number", "40"]
+            + [base if a == "snps" else a for a in flags] + extra)
+        lines[pkg] = capsys.readouterr().out.strip()
+        trees[pkg] = read_tree(tmp_path / f"out_{pkg}")
+    (got, got_snps), (want, want_snps) = (split_tree(trees[k])
+                                          for k in ("port", "jax"))
+    assert bool(want_snps) == any("run_on_snps" in f for f in flags)
+    if want_snps:
+        assert_same_snp_artifacts(got_snps, want_snps)
+    assert not got_snps or want_snps
+    if "--kinship_snps" in flags:
+        np.testing.assert_allclose(
+            np.loadtxt(io.BytesIO(got.pop("pheno.kinship"))),
+            np.loadtxt(io.BytesIO(want.pop("pheno.kinship"))), rtol=0,
+            atol=1e-12)
+        assert os.path.exists(tmp_path / "port" / "snps.kinship")
+    if "--dont_run_on_kmers" in flags:
+        assert sorted(got) == sorted(want) and "kmers/best_pvals" not in want
+        for f in want:
+            assert f == "log_file" or got[f] == want[f], f
+    else:
+        # on the SNP kinship, which the packages round differently, the
+        # k-mers' l_mle wanders as on doses (tests/test_torch_snps.py)
+        assert_same_artifacts(got, want, assert_lmm_fields
+                              if "--kinship_snps" in flags
+                              else assert_lmm_close)
+    (g_th, g_rest), (w_th, w_rest) = (
+        ln.split(" ", 1) for ln in (lines["port"], lines["jax"]))
+    assert g_rest == w_rest
+    if w_th == "threshold_5per=n/a":
+        assert g_th == w_th
+    else:
+        assert math.isclose(float(g_th.split("=")[1]),
+                            float(w_th.split("=")[1]), rel_tol=1e-9)
+
+
+@pytest.mark.parametrize("run_snps,run_kmers", [("two_steps", False),
+                                                ("one_step", True)])
+def test_run_gwas_snp_arm_matches_jax(tmp_path, pop, snp_bed,
+                                      shared_transform, run_snps,
+                                      run_kmers):
+    """run_gwas with kinship_snps and the SNP arm, in both packages on
+    their own copies of the bed: the same GWASResult thresholds and
+    best_pvals, the same artifacts; the port's SNP stages timed."""
+    res = {}
+    for pkg, mod, extra in (("jax", jgwas, {}), ("port", pgwas,
+                                                  {"device": "cpu"})):
+        (tmp_path / pkg).mkdir()
+        base = str(tmp_path / pkg / "snps")
+        for ext in (".bed", ".bim", ".fam"):
+            shutil.copy(snp_bed + ext, base + ext)
+        res[pkg] = mod.run_gwas(mod.GWASConfig(
+            outdir=str(tmp_path / f"out_{pkg}"), snps_matrix=base,
+            run_snps=run_snps, kinship_snps=True, run_kmers=run_kmers,
+            n_snps=40, remove_intermediates=False,
+            pheno_path=str(pop["pheno_path"]), kmers_table=pop["base"],
+            **dict(KW, n_permutations=10), **extra))
+    got, want = res["port"], res["jax"]
+    for key, v in want.thresholds.items():
+        assert math.isclose(got.thresholds[key], v, rel_tol=1e-9)
+    assert list(got.best_pvals) == list(want.best_pvals)
+    np.testing.assert_allclose(list(got.best_pvals.values()),
+                               list(want.best_pvals.values()), rtol=1e-9)
+    (g, g_snps), (w, w_snps) = (split_tree(read_tree(tmp_path / f"out_{k}"))
+                                for k in ("port", "jax"))
+    assert_same_snp_artifacts(g_snps, w_snps)
+    np.testing.assert_allclose(np.loadtxt(io.BytesIO(g.pop("pheno.kinship"))),
+                               np.loadtxt(io.BytesIO(w.pop("pheno.kinship"))),
+                               rtol=0, atol=1e-12)
+    if run_kmers:
+        assert_same_artifacts(g, w, assert_lmm_fields)
+    else:
+        assert sorted(g) == sorted(w) and "summary.json" not in w
+    stages = {"snp_kinship", "snps.planes", "snps.scores", "snps.lmm",
+              "snps.artifacts"}
+    assert stages <= set(got.stage_seconds)
+    # the SNP kinship was cached beside the bed, and is read back
+    again = pgwas.run_gwas(pgwas.GWASConfig(
+        outdir=str(tmp_path / "again"), snps_matrix=str(tmp_path / "port" /
+                                                         "snps"),
+        run_snps=run_snps, kinship_snps=True, run_kmers=False, n_snps=40,
+        pheno_path=str(pop["pheno_path"]), kmers_table=pop["base"],
+        device="cpu", **dict(KW, n_permutations=10)))
+    assert "snp_kinship" not in again.stage_seconds
+    assert "Using kinship calculated on SNPs" in \
+        (tmp_path / "again" / "log_file").read_text()
+    assert_same_snp_artifacts(split_tree(read_tree(tmp_path / "again"))[1],
+                              g_snps)

@@ -27,6 +27,10 @@ def test_port_imports_without_jax_or_a_build():
         "import kmersgwas_tpu_torch.stats.mvnpermute\n"
         "import kmersgwas_tpu_torch.stats.transform\n"
         "import kmersgwas_tpu_torch.stats.lmm\n"
+        "import kmersgwas_tpu_torch.stats.gamma\n"
+        "import kmersgwas_tpu_torch.snps.bed, kmersgwas_tpu_torch.snps.assoc\n"
+        "import kmersgwas_tpu_torch.snps.kinship\n"
+        "import kmersgwas_tpu_torch.pipeline.snp_gwas\n"
         "import kmersgwas_tpu_torch.ops.kinship\n"
         "import kmersgwas_tpu_torch.ops.scanstep\n"
         "import kmersgwas_tpu_torch.parallel.multihost\n"
