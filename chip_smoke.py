@@ -135,7 +135,26 @@ Phases (each prints its own lines; any failure exits non-zero):
      emma_REML_t at n=1008 (phase 8's kinship), 4096 variants, g=2, NaNs
      in ~1 % of the xs entries and in one ys row, against the port's CPU
      float64 run on 128 of the variants; calc_gamma on phase 3's table,
-     card against CPU; the smoke's wall time.
+     card against CPU;
+ 21. reads to results through the port's CLI (phase_ingest): the
+     reference's E. coli example at its published shape (241 accessions,
+     k=31, MAC 5, -p 0.2) on simulated 500-kb genomes (mutations along a
+     random tree, a 300-bp cassette in half, phenotype 3 x carrier +
+     N(0, 0.5), 5x coverage of 100-bp reads, half reverse-complemented):
+     `count` x2 and `strand-merge` per accession in a thread pool (the
+     native ingest library), `list-kmers`, `build-table`; on 8 accessions
+     the numpy route (--no-native) byte-identical to the native one;
+     `gwas --device cuda` (K7, K1, K2; 100 permutations, top-10001,
+     host64, --certify_topk) with the cassette's k-mers past
+     threshold_5per, its kinship equal to a float64 Gram of the table,
+     every column certified and 4 columns' top-k equal to the f64
+     oracle's; `gwas-mp` in 2 processes sharing the card (K7, K3)
+     writing gwas's artifacts byte for byte, every column certified, its
+     kinship the float64 Gram's; `filter-kmers` and
+     `table-to-bed -u` on the passing k-mers equal to the table's rows; a
+     `kmc-export` -> `kmc-import` round trip and `histogram`; each step's
+     wall, the table's rows and bytes, the host's cores; the smoke's wall
+     time.
 The script writes its inputs itself and imports nothing of the JAX
 package. The bench's and the at-scale stream's JSON lines come on earlier
 lines. The line before the last is the kernels' JSON record (per kernel:
@@ -3408,6 +3427,614 @@ def phase_emma(main, kin, m=4096, g=2, n_cpu=128, device="cuda"):
          "emma: calc_gamma differs between the card and the CPU")
 
 
+# ---------------------------------------------------------------- phase 21
+
+INGEST_ACCESSIONS = 241     # the reference's E. coli example (SURVEY.md)
+INGEST_GENOME = 500_000     # bases: cut from E. coli's ~5 Mb to fit the smoke
+INGEST_K = 31
+INGEST_MAC = 5
+INGEST_P = 0.2
+INGEST_COVERAGE = 5
+INGEST_READ = 100
+INGEST_CASSETTE = 300
+INGEST_TREE_MUTATIONS = 100  # mean substitutions per edge of the tree
+INGEST_NUMPY = 8             # accessions also run on the numpy route
+_FASTQ_TAIL = b"\n+\n"
+
+
+def simulate_tree(rng, n):
+    """A random binary tree over n leaves (random joins of two lineages)
+    -> parent of each node (-1 at the root), leaves 0..n-1."""
+    parent = np.full(2 * n - 1, -1, np.int64)
+    active = list(range(n))
+    nxt = n
+    while len(active) > 1:
+        i, j = sorted(rng.choice(len(active), 2, replace=False))
+        parent[active[i]] = parent[active[j]] = nxt
+        active[i] = nxt
+        active.pop(j)
+        nxt += 1
+    return parent
+
+
+def write_fastq(path, genome, rng, coverage, read_len):
+    """coverage x len(genome) / read_len reads at uniform starts, half of
+    them reverse-complemented, as FASTQ (quality 'I')."""
+    n_reads = coverage * len(genome) // read_len
+    starts = rng.integers(0, len(genome) - read_len + 1, size=n_reads)
+    seq = genome[starts[:, None] + np.arange(read_len)]
+    rc = rng.random(n_reads) < 0.5
+    seq[rc] = 3 - seq[rc][:, ::-1]
+    rec = np.empty((n_reads, 3 + read_len + 3 + read_len + 1), np.uint8)
+    rec[:, :3] = np.frombuffer(b"@r\n", np.uint8)
+    rec[:, 3:3 + read_len] = np.frombuffer(b"ACGT", np.uint8)[seq]
+    rec[:, 3 + read_len:6 + read_len] = np.frombuffer(_FASTQ_TAIL, np.uint8)
+    rec[:, 6 + read_len:-1] = ord("I")
+    rec[:, -1] = ord("\n")
+    rec.tofile(path)
+    return n_reads
+
+
+def cli_run(argv):
+    """The port's CLI `main(argv)` in this process -> (stdout, stderr)."""
+    import contextlib
+    import io
+    from kmersgwas_tpu_torch.cli.__main__ import main as cli
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli(argv)
+    return out.getvalue(), err.getvalue()
+
+
+def canonical_kmers(codes_u8, k):
+    """Canonical k-mer codes of a 2-bit code sequence (no invalid bases)."""
+    from kmersgwas_tpu_torch.core import codec
+    from kmersgwas_tpu_torch.ingest import counter
+    seq = np.frombuffer(b"ACGT", np.uint8)[codes_u8].tobytes()
+    return np.unique(codec.canonize(counter.kmers_of_sequence(seq, k), k))
+
+
+def encode_kmer_strings(strs):
+    """Codes of equal-length ACGT strings, vectorized (the bim's k-mers)."""
+    if not strs:
+        return np.empty(0, np.uint64)
+    u = np.array(strs, dtype="S").view(np.uint8).reshape(len(strs), -1)
+    lut = np.zeros(256, np.uint64)
+    lut[np.frombuffer(b"CGT", np.uint8)] = [1, 2, 3]
+    shifts = np.arange(2 * (u.shape[1] - 1), -1, -2, dtype=np.uint64)
+    return (lut[u] << shifts).sum(axis=1, dtype=np.uint64)
+
+
+def bed_dubits(base, n, rows):
+    """The PLINK bed's genotype dubits (len(rows), n) of SNP rows `rows`
+    (presence 3, absence 0, as core/formats.py writes them)."""
+    bpr = (n + 3) // 4
+    body = np.fromfile(base + ".bed", np.uint8, offset=3).reshape(-1, bpr)
+    sel = body[rows]
+    shifts = np.arange(4, dtype=np.uint8) * 2
+    return ((sel[:, :, None] >> shifts) & np.uint8(3)).reshape(
+        len(rows), -1)[:, :n]
+
+
+def read_table_rows(base):
+    """(k-mer codes, (rows, words) presence words) of a .table file."""
+    n, = struct.unpack_from("<Q", open(base + ".table", "rb").read(12), 4)
+    words = 1 + (n + 63) // 64
+    body = np.fromfile(base + ".table", "<u8",
+                       offset=TABLE_HEADER.size).reshape(-1, words)
+    return body[:, 0], body[:, 1:]
+
+
+def table_bits(words, cols):
+    """Presence bits (rows, len(cols)) of the table's columns `cols`."""
+    cols = np.asarray(cols)
+    return ((words[:, cols // 64] >> (cols % 64).astype(np.uint64))
+            & np.uint64(1)).astype(np.uint8)
+
+
+def kinship_oracle(base, n, maf, chunk=1 << 18, device="cuda"):
+    """f64 recomputation of a table's kinship with plain torch on `device`
+    (none of the port's code): the bits of the rows with ceil(maf n) <= N1
+    <= n - ceil(maf n) as +-1, their Gram in float64 (integers, exact in
+    any order), then the XNOR fraction (rows + G) / 2 / rows with the
+    diagonal 1 (emma_kinship_kmers.cpp:95-102)."""
+    import torch
+    wf = (n + 63) // 64
+    raw = np.memmap(base + ".table", dtype="<u8", mode="r",
+                    offset=TABLE_HEADER.size).reshape(-1, 1 + wf)
+    mc = math.ceil(n * maf)
+    shifts = torch.arange(8, dtype=torch.uint8, device=device)
+    G = torch.zeros((n, n), dtype=torch.float64, device=device)
+    rows = 0
+    for s in range(0, raw.shape[0], chunk):
+        blk = torch.from_numpy(np.ascontiguousarray(raw[s:s + chunk, 1:])
+                               .view(np.uint8)).to(device)
+        bits = ((blk[:, :, None] >> shifts) & 1).reshape(
+            blk.shape[0], -1)[:, :n].to(torch.float64)
+        pc = bits.sum(1)
+        a = 2 * bits[(pc >= mc) & (pc <= n - mc)] - 1
+        G += a.T @ a
+        rows += a.shape[0]
+        del blk, bits, a
+    k = (rows + G.cpu().numpy()) / 2.0 / float(rows)
+    np.fill_diagonal(k, 1.0)
+    return k, rows
+
+
+def phase_ingest(workdir, env, n_acc=INGEST_ACCESSIONS,
+                 genome_len=INGEST_GENOME, n_numpy=INGEST_NUMPY,
+                 n_perm=100, top=10001, batch=2_000_000, device="cuda",
+                 timeout=900):
+    """Reads to results through the port's CLI (phase 21): the reference's
+    E. coli example at its published shape (241 accessions, k = 31, MAC 5,
+    -p 0.2) on simulated genomes of 500 kb (cut from ~5 Mb), mutated along
+    a random tree, a 300-bp cassette in half of them, phenotype = 3 x
+    carrier + N(0, 0.5), reads at 5x coverage of 100 bp, half
+    reverse-complemented.
+
+      1. `count` twice per accession (canonized with min_count 2, and as
+         read) and `strand-merge`, the accessions in a thread pool (the
+         native library runs without the GIL);
+      2. `list-kmers` and `build-table` over all accessions;
+      3. on n_numpy accessions the same steps with --no-native: every
+         artifact byte-identical to the native route's;
+      4. `gwas --device cuda`: kinship from the table (K7), 100
+         permutations, top-10001, host64, --certify_topk (the scan K1,
+         K2); the cassette's k-mers past threshold_5per; the kinship
+         equal to a float64 Gram of the table bit for bit, every column
+         certified, and 4 columns' top-k equal to the f64 oracle's on the
+         transformed phenotypes it wrote;
+      5. `gwas-mp` in 2 processes sharing the card with the same
+         arguments (distributed kinship K7, scan K3): every artifact
+         byte-identical to step 4's but summary.json (n_processes) and
+         log_file, every column certified, the distributed kinship equal
+         to the float64 Gram;
+      6. `table-to-bed -u` and `filter-kmers` on the passing k-mers: their
+         presence bits equal the table's rows;
+      7. `kmc-export` -> `kmc-import` of one count file (the same bytes)
+         and `histogram` of it.
+    Smaller arguments and device="cpu" rehearse the phase without a
+    card."""
+    import concurrent.futures
+    import contextlib
+    import io
+    import socket
+    import torch
+    from kmersgwas_tpu_torch import native
+    from kmersgwas_tpu_torch.cli.__main__ import main as cli
+    from kmersgwas_tpu_torch.core import codec, formats
+    from kmersgwas_tpu_torch.ops import kinship as kin_ops
+    from kmersgwas_tpu_torch.ops import score
+    from kmersgwas_tpu_torch.pipeline import gwas as gwas_mod
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    from kmersgwas_tpu_torch.pipeline import scan
+    t_phase = time.perf_counter()
+    walls = {}
+    k = INGEST_K
+    d = os.path.join(workdir, "ingest")
+    os.makedirs(d)
+    try:
+        native.load_ingest()
+    except native.NativeUnavailable as e:
+        raise PhaseError(f"ingest: the native ingest library does not "
+                         f"build here:\n{e}") from None
+    cores = os.cpu_count()
+    log(f"ingest: {n_acc} accessions, genomes of {genome_len} bases, "
+        f"k={k}, {INGEST_COVERAGE}x coverage of {INGEST_READ}-bp reads, "
+        f"host cores {cores}; {env['card']}")
+
+    # the population: a root genome, substitutions along a random tree,
+    # the cassette in a random half
+    rng = np.random.default_rng(21)
+    root = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
+    parent = simulate_tree(rng, n_acc)
+    n_edges = len(parent) - 1
+    n_mut = rng.poisson(INGEST_TREE_MUTATIONS, size=len(parent))
+    n_mut[parent < 0] = 0
+    muts = [(rng.integers(0, genome_len, size=m),
+             rng.integers(1, 4, size=m).astype(np.uint8)) for m in n_mut]
+    cassette = rng.integers(0, 4, size=INGEST_CASSETTE, dtype=np.uint8)
+    carrier = np.zeros(n_acc, bool)
+    carrier[rng.choice(n_acc, n_acc // 2, replace=False)] = True
+    y = 3.0 * carrier + rng.normal(scale=0.5, size=n_acc)
+    names = [f"acc{s:03d}" for s in range(n_acc)]
+    pheno = os.path.join(d, "resistance.pheno")
+    write_phenotypes(pheno, ["phenotype_value"], names, y[:, None])
+    ins = genome_len // 2
+
+    def genome_of(s):
+        g = root.copy()
+        node = s
+        while parent[node] >= 0:
+            pos, shift = muts[node]
+            np.add.at(g, pos, shift)
+            node = parent[node]
+        g &= 3
+        if carrier[s]:
+            g = np.concatenate([g[:ins], cassette, g[ins:]])
+        return g
+
+    def one_accession(s):
+        base = os.path.join(d, names[s])
+        reads = base + ".fq"
+        write_fastq(reads, genome_of(s), np.random.default_rng([21, s]),
+                    INGEST_COVERAGE, INGEST_READ)
+        # stdout and stderr go where the pool's caller redirected them
+        cli(["count", "-k", str(k), "-o", base + ".canon", "--canonize",
+             "--min_count", "2", reads])
+        cli(["count", "-k", str(k), "-o", base + ".nonc", reads])
+        cli(["strand-merge", "-c", base + ".canon", "-n", base + ".nonc",
+             "-k", str(k), "-o", base + ".kmers"])
+        return os.path.getsize(reads)
+
+    # 1. count + strand-merge, the accessions in a thread pool
+    out, err = io.StringIO(), io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            concurrent.futures.ThreadPoolExecutor(cores) as ex:
+        read_bytes = sum(ex.map(one_accession, range(n_acc)))
+    walls["simulate+count+strand-merge"] = time.perf_counter() - t1
+    text, etext = out.getvalue(), err.getvalue()
+    need(len(re.findall(r"\d+ distinct k-mers", text)) == 2 * n_acc
+         and len(re.findall(r"\d+ k-mers written", text)) == n_acc,
+         f"ingest: count/strand-merge stdout:\n{text[-2000:]}")
+    need(etext.count("native route") == 3 * n_acc
+         and "numpy route" not in etext,
+         f"ingest: not every call took the native route:\n{etext[-2000:]}")
+    log(f"ingest: count x2 + strand-merge of {n_acc} accessions "
+        f"({read_bytes / 2**30:.2f} GiB of FASTQ, {n_edges} tree edges, "
+        f"{int(n_mut.sum())} substitutions), {cores} threads: "
+        f"{walls['simulate+count+strand-merge']:.1f} s with the reads' "
+        f"simulation")
+
+    # 2. the master list and the table
+    lst = os.path.join(d, "kmers_list_paths.txt")
+    with open(lst, "w") as f:
+        f.writelines(f"{os.path.join(d, a)}.kmers {a}\n" for a in names)
+    t1 = time.perf_counter()
+    o1, _ = cli_run(["list-kmers", "-l", lst, "-k", str(k), "--mac",
+                     str(INGEST_MAC), "-p", str(INGEST_P), "-o",
+                     os.path.join(d, "kmers_to_use")])
+    walls["list-kmers"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    table = os.path.join(d, "kmers_table")
+    o2, _ = cli_run(["build-table", "-l", lst, "-k", str(k), "-a",
+                     os.path.join(d, "kmers_to_use"), "-o", table])
+    walls["build-table"] = time.perf_counter() - t1
+    n_rows = int(o2.split()[1])
+    need(o1.strip() == f"passed kmers:\t{n_rows}",
+         f"ingest: list-kmers said {o1!r}, build-table {o2!r}")
+    table_bytes = os.path.getsize(table + ".table")
+    log(f"ingest: list-kmers {walls['list-kmers']:.1f} s, build-table "
+        f"{walls['build-table']:.1f} s: {n_rows} rows, {table_bytes} bytes "
+        f"({table_bytes / 2**20:.1f} MiB)")
+
+    # 3. the numpy route on n_numpy accessions: the same bytes. Its counter
+    # is a Python loop over reads, which holds the GIL: each accession's
+    # three calls run in a process of their own, all at once
+    t1 = time.perf_counter()
+    sub = list(range(n_numpy))
+    code = ("import sys\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            "from kmersgwas_tpu_torch.cli.__main__ import main\n"
+            "b, k = sys.argv[1], sys.argv[2]\n"
+            "main(['count', '-k', k, '-o', b + '.np.canon', '--canonize', "
+            "'--min_count', '2', b + '.fq', '--no-native'])\n"
+            "main(['count', '-k', k, '-o', b + '.np.nonc', b + '.fq', "
+            "'--no-native'])\n"
+            "main(['strand-merge', '-c', b + '.np.canon', '-n', "
+            "b + '.np.nonc', '-k', k, '-o', b + '.np.kmers', "
+            "'--no-native'])\n")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, os.path.join(d, names[s]), str(k)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for s in sub]
+    try:
+        logs = [pr.communicate(timeout=timeout)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for s, pr, text in zip(sub, procs, logs):
+        need(pr.returncode == 0 and text.count("numpy route") == 3,
+             f"ingest: the numpy route failed:\n{text[-3000:]}")
+        base = os.path.join(d, names[s])
+        want = [f"{os.path.getsize(base + '.canon') // 16} distinct k-mers",
+                f"{os.path.getsize(base + '.nonc') // 16} distinct k-mers",
+                f"{os.path.getsize(base + '.kmers') // 8} k-mers written"]
+        need([ln for ln in text.splitlines() if "k-mers" in ln] == want,
+             f"ingest: the numpy route's stdout {text!r}, native {want}")
+    diff = []
+    for s in sub:
+        base = os.path.join(d, names[s])
+        for ext in (".canon", ".nonc", ".kmers"):
+            if open(base + ext, "rb").read() != \
+                    open(base + ".np" + ext, "rb").read():
+                diff.append(names[s] + ext)
+    outs = {}
+    for route, tag, flag in (("native", "", []),
+                             ("numpy", ".np", ["--no-native"])):
+        sl = os.path.join(d, f"sub{tag}.txt")
+        with open(sl, "w") as f:
+            f.writelines(f"{os.path.join(d, names[s])}{tag}.kmers "
+                         f"{names[s]}\n" for s in sub)
+        m = os.path.join(d, f"sub{tag}.master")
+        t = os.path.join(d, f"sub{tag}.table_base")
+        a, _ = cli_run(["list-kmers", "-l", sl, "-k", str(k), "--mac",
+                        str(INGEST_MAC), "-p", str(INGEST_P), "-o", m,
+                        *flag])
+        b, _ = cli_run(["build-table", "-l", sl, "-k", str(k), "-a", m,
+                        "-o", t, *flag])
+        outs[route] = [a, b] + [
+            open(p, "rb").read() for p in
+            [m + sfx for sfx in ("", ".no_pass_kmers", ".shareness",
+                                 ".stats.only_canonical",
+                                 ".stats.only_non_canonical",
+                                 ".stats.both")]
+            + [t + ".table", t + ".names"]]
+    walls["numpy route"] = time.perf_counter() - t1
+    need(not diff, f"ingest: the numpy route's bytes differ: {diff}")
+    need(outs["native"] == outs["numpy"],
+         "ingest: list-kmers/build-table differ between the routes")
+    log(f"ingest: the numpy route on {n_numpy} accessions (count x2, "
+        f"strand-merge, list-kmers, build-table): every artifact and "
+        f"stdout byte-identical to the native route's "
+        f"({walls['numpy route']:.1f} s)")
+
+    # 4. gwas on the card, in this process
+    args = ["--pheno", pheno, "--kmers_table", table, "-l", str(k), "-k",
+            str(top), "--permutations", str(n_perm), "--mac",
+            str(INGEST_MAC), "--batch_size", str(batch), "--lmm_backend",
+            "host64", "--certify_topk", "--device", device]
+    counters = (score.score_batch_t_topw, score.score_batch_t_bmax,
+                score.score_batch_t_tilemax, kin_ops.kinship_accumulate,
+                kin_ops.transpose_bits)
+    for c in counters:
+        c.launches = 0
+    t1 = time.perf_counter()
+    one_out = os.path.join(d, "gwas_one")
+    with Capture(gwas_mod.transform_mod, "transform_and_permute") as c_tr, \
+            Capture(gwas_mod.scan_mod, "associate") as c_sr:
+        o, _ = cli_run(["gwas", "--outdir", one_out, *args])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    walls["gwas"] = time.perf_counter() - t1
+    tr, sr = c_tr.calls[0], c_sr.calls[0]
+    k1, k2, k3, k7, k7t = (c.launches for c in counters)
+    need(k1 >= 1 and k7 >= 1 and k3 == 0 or device != "cuda",
+         f"ingest: gwas launched K1 {k1}, K2 {k2}, K3 {k3}, K7 {k7}")
+    log(f"ingest: gwas --device {device}: {o.strip()} "
+        f"({walls['gwas']:.1f} s; K1 {k1}, K2 {k2}, K7 {k7}, K7's "
+        f"transpose {k7t})")
+    passed = [ln.split("\t")[0] for ln in open(os.path.join(
+        one_out, "kmers", "pass_threshold_5per")).read().splitlines()]
+    flank = root[ins - k + 1:ins + k - 1]
+    cas = canonical_kmers(np.concatenate(
+        [flank[:k - 1], cassette, flank[k - 1:]]), k)
+    kmers_all, words = read_table_rows(table)
+    cas_in_table = np.intersect1d(cas, kmers_all)
+    pass_codes = (codec.encode_kmers(passed) if passed
+                  else np.empty(0, np.uint64))
+    cas_pass = np.intersect1d(cas_in_table, pass_codes)
+    log(f"ingest: {len(passed)} k-mers pass threshold_5per, "
+        f"{len(cas_pass)} of the cassette's {len(cas)} k-mers ("
+        f"{len(cas_in_table)} in the table)")
+    need(len(cas_in_table) > 0 and 2 * len(cas_pass) >= len(cas_in_table),
+         "ingest: the cassette's k-mers did not pass threshold_5per")
+
+    # the kernels of step 4 against plain references on the same inputs:
+    # K7's kinship (cached beside the table) against a float64 Gram, the
+    # scan's certified top-k (K1, K2) against the f64 oracle on the
+    # float32-cast transformed phenotypes, as phase 4 holds them
+    t1 = time.perf_counter()
+    need(formats.read_names(table) == names, "ingest: the table's names")
+    K_ref, kin_rows = kinship_oracle(table, n_acc, 0.05, device=device)
+    K_one = km.read_kinship(table + ".kinship")
+    need(np.array_equal(K_one, K_ref),
+         f"gwas: kinship differs from the f64 Gram in "
+         f"{int((K_one != K_ref).sum())} entries")
+    pcs = np.unpackbits(np.ascontiguousarray(words).view(np.uint8),
+                        axis=1).sum(1, dtype=np.int64)
+    mc = scan.effective_min_count(n_acc, 0.05, INGEST_MAC)
+    keep = (pcs >= mc) & (pcs <= n_acc - mc)
+    need(sr.n_tested == int(keep.sum()),
+         f"gwas: {sr.n_tested} k-mers tested, {int(keep.sum())} pass MAC")
+    need(sr.certified is not None and len(sr.certified) == 1 + n_perm
+         and all(sr.certified),
+         f"gwas: certified {sum(sr.certified or [])} of {1 + n_perm} "
+         f"columns")
+    cols = (0, 1, n_perm // 2, n_perm)
+    oracle = oracle_top(table, n_acc,
+                        tr.transformed[:, cols].astype(np.float32), keep,
+                        top, device=device)
+    for j, (bv, br) in zip(cols, oracle):
+        need(np.array_equal(sr.rows[j], br),
+             f"gwas: column {j}: rows differ from the f64 oracle "
+             f"({np.sum(sr.rows[j] != br)} of {len(br)})")
+        need(np.allclose(sr.scores[j], bv, rtol=1e-12, atol=0),
+             f"gwas: column {j}: scores differ from the f64 oracle")
+    walls["gwas oracles"] = time.perf_counter() - t1
+    log(f"ingest: gwas's kinship (K7) equal to the f64 Gram of its "
+        f"{kin_rows} rows bit for bit; all {1 + n_perm} columns certified; "
+        f"columns {list(cols)}: top-{top} rows and scores equal the f64 "
+        f"oracle's ({walls['gwas oracles']:.1f} s)")
+
+    # 5. gwas-mp: 2 processes sharing the card, the same arguments; the
+    # kinship cached beside the table by step 4 is removed, so the
+    # distributed kinship runs
+    os.remove(table + ".kinship")
+    if device == "cuda":
+        torch.cuda.empty_cache()        # the card is shared with the ranks
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    mp_out = os.path.join(d, "gwas_mp")
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            "from kmersgwas_tpu_torch.cli.__main__ import main\n"
+            "from kmersgwas_tpu_torch.ops import kinship as kin, score\n"
+            "cs = {'k1': score.score_batch_t_topw, "
+            "'k2': score.score_batch_t_bmax, "
+            "'k3': score.score_batch_t_tilemax, "
+            "'k7': kin.kinship_accumulate, 'k7t': kin.transpose_bits}\n"
+            "from kmersgwas_tpu_torch.pipeline import scan as sc\n"
+            "sel, cert = sc.select_candidates, []\n"
+            "def select(*a, **kw):\n"
+            "    r = sel(*a, **kw)\n"
+            "    cert.append(r[3])\n"
+            "    return r\n"
+            "sc.select_candidates = select\n"
+            "for c in cs.values():\n"
+            "    c.launches = 0\n"
+            "main(sys.argv[1:])\n"
+            "print('certified ' + json.dumps("
+            "[c if c is None else [bool(x) for x in c] for c in cert]))\n"
+            "print('launches ' + json.dumps("
+            "{n: c.launches for n, c in cs.items()}))\n")
+    cmd = [sys.executable, "-c", code, "gwas-mp", "--outdir", mp_out, *args,
+           "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2"]
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process_id", str(i)], cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    try:
+        logs = [pr.communicate(timeout=timeout)[0] for pr in procs]
+    finally:
+        for pr in procs:                # a failed or hung rank: stop all
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    walls["gwas-mp"] = time.perf_counter() - t1
+    for i, (pr, text) in enumerate(zip(procs, logs)):
+        need(pr.returncode == 0, f"gwas-mp: rank {i} exited "
+             f"{pr.returncode}:\n{text[-3000:]}")
+    ranks = [json.loads(last_line(t, "launches ").split(" ", 1)[1])
+             for t in logs]
+    cert = [json.loads(last_line(t, "certified ").split(" ", 1)[1])
+            for t in logs]
+    need(len(cert[0]) == 1 and cert[0][0] is not None
+         and len(cert[0][0]) == 1 + n_perm and all(cert[0][0])
+         and cert[1] == [],
+         f"gwas-mp: the selection's certified flags per rank: {cert}")
+    mp = {c: sum(r[c] for r in ranks) for c in ranks[0]}
+    lines = [last_line(t, "threshold_5per=" if i == 0 else "process 1:")
+             for i, t in enumerate(logs)]
+    log(f"ingest: gwas-mp 2 processes --device {device}: {lines[0]} | "
+        f"{lines[1]} ({walls['gwas-mp']:.1f} s; K3 {mp['k3']}, K2 "
+        f"{mp['k2']}, K7 {mp['k7']}, K7's transpose {mp['k7t']}, K1 "
+        f"{mp['k1']})")
+    need(lines[0] == o.strip(),
+         f"gwas-mp: process 0 said {lines[0]!r}, gwas {o.strip()!r}")
+    need(mp["k3"] >= 2 and mp["k7"] >= 2 and mp["k1"] == 0
+         and all(r["k7"] >= 1 and r["k3"] >= 1 for r in ranks)
+         or device != "cuda",
+         f"gwas-mp: launches per rank {ranks}")
+    K_mp = km.read_kinship(table + ".kinship")
+    need(np.array_equal(K_mp, K_ref),
+         f"gwas-mp: the distributed kinship differs from the f64 Gram in "
+         f"{int((K_mp != K_ref).sum())} entries")
+    a, b = gwas_outputs(mp_out), gwas_outputs(one_out)
+    need(sorted(a) == sorted(b), f"gwas-mp: files differ: {sorted(a)} vs "
+         f"{sorted(b)}")
+    diff = [f for f in b if f not in ("summary.json", "log_file")
+            and a[f] != b[f]]
+    need(not diff, f"gwas-mp: artifacts differ from gwas's: {diff}")
+    sa, sb = (json.loads(x["summary.json"]) for x in (a, b))
+    need(sa.pop("n_processes") == 2 and sorted(sa) == sorted(sb) and all(
+        sa[key] == sb[key] for key in sb if key != "stage_seconds"),
+        "gwas-mp: summary.json differs from gwas's")
+    log(f"ingest: gwas-mp wrote gwas's {len(b) - 2} artifacts byte for "
+        "byte (assoc.txt.gz, thresholds, pass files, bed/bim/fam, "
+        "kinship, phenotypes; so its scan, K3, holds gwas's oracle-checked "
+        "top-k); summary.json equal but n_processes 2 and the stage "
+        f"times; all {1 + n_perm} columns certified; the distributed "
+        "kinship (K7) equal to the f64 Gram bit for bit")
+
+    # 6. exports of the passing k-mers against the table
+    t1 = time.perf_counter()
+    qfile = os.path.join(d, "passed.txt")
+    with open(qfile, "w") as f:
+        f.write("\n".join(passed) + "\n")
+    o, _ = cli_run(["filter-kmers", "-t", table, "-k", qfile, "-o",
+                    os.path.join(d, "passed.presence")])
+    need(o.strip() == f"found {len(passed)} of {len(passed)}",
+         f"filter-kmers: {o!r}")
+    rows = np.searchsorted(kmers_all, pass_codes)
+    pres = [ln.split("\t") for ln in open(os.path.join(
+        d, "passed.presence")).read().splitlines()]
+    need(pres[0] == ["kmer"] + names, "filter-kmers: header")
+    order = np.argsort(rows)
+    got = np.array([[int(x) for x in r[1:]] for r in pres[1:]], np.uint8)
+    need([r[0] for r in pres[1:]] == [passed[i] for i in order]
+         and np.array_equal(got.reshape(len(passed), n_acc),
+                            table_bits(words[rows[order]],
+                                       np.arange(n_acc))),
+         "filter-kmers: presence differs from the table's rows")
+    o, _ = cli_run(["table-to-bed", "-t", table, "-p", pheno, "--maf",
+                    "0.05", "--mac", str(INGEST_MAC), "-b", str(1 << 20),
+                    "-u", "-o", os.path.join(d, "bed")])
+    n_var = int(o.split()[1])
+    got_rows, checked = 0, 0
+    shard = 0
+    while os.path.exists(os.path.join(d, f"bed.{shard}.bed")):
+        sb_ = os.path.join(d, f"bed.{shard}")
+        need(formats.read_fam_names(sb_ + ".fam") == names,
+             "table-to-bed: fam order")
+        with open(sb_ + ".bim") as f:
+            codes = encode_kmer_strings(
+                [ln.split("\t", 2)[1] for ln in f])
+        pick = np.nonzero(np.isin(codes, pass_codes))[0]
+        extra = np.random.default_rng(shard).choice(
+            len(codes), size=min(4096, len(codes)), replace=False)
+        pick = np.union1d(pick, extra)
+        r = np.searchsorted(kmers_all, codes[pick])
+        need(np.array_equal(kmers_all[r], codes[pick]) and np.array_equal(
+            bed_dubits(sb_, n_acc, pick),
+            3 * table_bits(words[r], np.arange(n_acc))),
+            f"table-to-bed: shard {shard} differs from the table's rows")
+        got_rows += len(codes)
+        checked += len(pick)
+        shard += 1
+    need(got_rows == n_var > 0, f"table-to-bed: {o!r}, {got_rows} rows")
+    walls["exports"] = time.perf_counter() - t1
+    log(f"ingest: filter-kmers of the {len(passed)} passing k-mers and "
+        f"table-to-bed -u ({n_var} variants in {shard} shards; "
+        f"{checked} rows checked, the passing k-mers among them): presence "
+        f"equal to the table's rows ({walls['exports']:.1f} s)")
+
+    # 7. KMC round trip and histogram of one count file
+    t1 = time.perf_counter()
+    counts = os.path.join(d, names[0] + ".canon")
+    kdb = os.path.join(d, "kmc_db")
+    cli_run(["kmc-export", counts, "-k", str(k), "-o", kdb])
+    o, _ = cli_run(["kmc-import", kdb, "-o", kdb + ".counts"])
+    need(open(kdb + ".counts", "rb").read() == open(counts, "rb").read(),
+         "kmc-export -> kmc-import changed the count file")
+    h, _ = cli_run(["histogram", counts])
+    hist = [ln.split("\t") for ln in h.splitlines()[1:]]
+    n_distinct = os.path.getsize(counts) // 16
+    need(sum(int(c) for _, c in hist) == n_distinct and hist[1][1] == "0",
+         "histogram: counts do not sum to the distinct k-mers")
+    walls["kmc+histogram"] = time.perf_counter() - t1
+    log(f"ingest: kmc-export -> kmc-import of {names[0]}'s canonized "
+        f"counts ({o.strip()}) byte-identical; histogram over "
+        f"{len(hist)} counts ({walls['kmc+histogram']:.1f} s)")
+    walls["phase"] = time.perf_counter() - t_phase
+    log("ingest: walls " + json.dumps({w: round(v, 2)
+                                        for w, v in walls.items()}))
+    return dict(k1=k1, k2=k2 + mp["k2"], k3=mp["k3"], k7=k7 + mp["k7"],
+                k7t=k7t + mp["k7t"], walls=walls, rows=n_rows,
+                table_bytes=table_bytes)
+
+
+def last_line(text, prefix):
+    """The last line of `text` that starts with `prefix` ("" if none)."""
+    hits = [ln for ln in text.splitlines() if ln.startswith(prefix)]
+    return hits[-1] if hits else ""
+
+
 # ---------------------------------------------------------------- record
 
 def bound_ms(n_bytes, ops, ops_per_s, bytes_per_s):
@@ -3530,6 +4157,7 @@ def main():
         timed(phase_gwas_cli, workdir)
         snp = timed(phase_snps, mres, workdir)
         timed(phase_emma, mres, kin)
+        ing = timed(phase_ingest, workdir, env)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3540,22 +4168,25 @@ def main():
         return 1
     t, e = kres["times"], kres["errs"]
     # K1, K2 and K7 run on several paths: the scan (phase 3) or kinship
-    # (phase 8), gwas (phase 18) and, K1 and K2, gwas with the SNP arm
-    # (phase 19)
+    # (phase 8), gwas (phase 18), K1 and K2 gwas with the SNP arm (phase
+    # 19), and reads to results (phase 21: gwas K1, K2 and K7, gwas-mp's
+    # ranks K3, K2 and K7)
     rows = [("score_topw", TOPW_SOURCE, TOPW_REPLACES,
-             mres["k1"] + gw["k1"] + snp["k1"], e[0], t[0], t[1]),
+             mres["k1"] + gw["k1"] + snp["k1"] + ing["k1"], e[0], t[0],
+             t[1]),
             ("score_bmax", BMAX_SOURCE, BMAX_REPLACES,
-             mres["k2"] + gw["k2"] + snp["k2"], e[1], t[2], t[3]),
-            ("score_tilemax", TILEMAX_SOURCE, TILEMAX_REPLACES, pres["k3"],
-             e[2], t[4], t[5]),
+             mres["k2"] + gw["k2"] + snp["k2"] + ing["k2"], e[1], t[2],
+             t[3]),
+            ("score_tilemax", TILEMAX_SOURCE, TILEMAX_REPLACES,
+             pres["k3"] + ing["k3"], e[2], t[4], t[5]),
             ("score_t", SCORE_T_SOURCE, SCORE_T_REPLACES, sres["k4"], e[3],
              t[6], t[7]),
             ("score_rows", SCORE_ROWS_SOURCE, SCORE_ROWS_REPLACES,
              bres["k5"], e[4], t[8], t[9]),
             ("kinship_gram", KINSHIP_SOURCE, KINSHIP_REPLACES,
-             kin["k7"] + gw["k7"], 0.0, t[10], t[11]),
+             kin["k7"] + gw["k7"] + ing["k7"], 0.0, t[10], t[11]),
             ("kinship_transpose", KINSHIP_SOURCE, KINSHIP_REPLACES,
-             kin["k7t"] + gw["k7t"], 0.0, t[12], t[13]),
+             kin["k7t"] + gw["k7t"] + ing["k7t"], 0.0, t[12], t[13]),
             ("gen_planes", GEN_SOURCE, GEN_REPLACES, bench_res["k6"], 0.0,
              *gres["times"]),
             ("score_parity", PARITY_SOURCE, PARITY_REPLACES, k8res["k8"],

@@ -1,7 +1,4 @@
 """Command-line entry points (`python -m kmersgwas_tpu_torch.cli <command>`),
-mirroring kmersgwas_tpu.cli. Ported so far:
-
-  reference binary                      | subcommand
-  --------------------------------------+----------------------------
-  associate_kmers                       | associate (adds --device)
+mirroring kmersgwas_tpu.cli: all 17 of its commands, with `--device` on
+those that touch the card (cli/__main__.py).
 """

@@ -1,8 +1,15 @@
 """CLI dispatcher: `python -m kmersgwas_tpu_torch.cli <command> [...]`.
 
-Port of kmersgwas_tpu/cli/__main__.py; `gwas`, `associate`,
-`associate-mp`, `kinship`, `kinship-mp`, `kinship-bed` and
-`associate-snps` are ported so far.
+Port of kmersgwas_tpu/cli/__main__.py: its 17 commands with their flags,
+stdout lines and output bytes. The commands that touch the card (`gwas`,
+`gwas-mp`, `associate`, `associate-mp`, `kinship`, `kinship-mp`,
+`kinship-bed`, `associate-snps`) take `--device` (default cuda; cuda
+without a card raises). The ingest and export commands (`count`,
+`strand-merge`, `list-kmers`, `build-table`, `table-to-bed`,
+`filter-kmers`, `kmc-import`, `kmc-export`, `histogram`) are host code,
+as in the JAX package: the native ingest library where it builds, else
+(or with --no-native) the numpy route, which writes the same bytes; the
+route taken is told on stderr.
 """
 from __future__ import annotations
 
@@ -89,6 +96,217 @@ def _add_gwas(sub):
         th5 = res.thresholds.get("5per")
         print(f"threshold_5per={th5 if th5 is not None else 'n/a'} "
               f"pass_5per={len(res.pass_5per)} tested={res.n_tested}")
+    p.set_defaults(func=run)
+
+
+def _add_gwas_mp(sub):
+    p = sub.add_parser(
+        "gwas-mp",
+        help="ONE-COMMAND multi-process GWAS: run this same command once "
+             "per process with a shared coordinator; distributed kinship + "
+             "process-0 transform broadcast + distributed scan + exact LMM "
+             "and thresholds written by process 0 "
+             "(pipeline.gwas.run_distributed_gwas)")
+    p.add_argument("--pheno", required=True)
+    p.add_argument("--kmers_table", required=True)
+    p.add_argument("--outdir", required=True)
+    p.add_argument("-l", "--kmer_len", type=int, required=True)
+    p.add_argument("-k", "--kmers_number", type=int, default=10001)
+    p.add_argument("--permutations", type=int, default=100)
+    p.add_argument("--maf", type=float, default=0.05)
+    p.add_argument("--mac", type=int, default=5)
+    p.add_argument("--min_data_points", type=int, default=30)
+    p.add_argument("--batch_size", type=int, default=2_000_000)
+    p.add_argument("--pattern_counter", action="store_true")
+    p.add_argument("--kinship", default=None, help="precomputed kinship TSV")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where each process's kinship, scan and (process "
+                        "0) exact LMM run (cuda raises without a card; "
+                        "process i takes card i modulo the count)")
+    p.add_argument("--dtable_cache", default=None,
+                   help="base path for per-process device-native table "
+                        "caches")
+    p.add_argument("--kmers_for_no_perm_phenotype", type=int, default=None,
+                   dest="n_extra_phenotype_kmers")
+    p.add_argument("--dont_remove_intermediates", action="store_true")
+    p.add_argument("--lmm_backend", default="auto",
+                   choices=["auto", "host64", "device32"])
+    p.add_argument("--score_precision", default="default",
+                   choices=["default", "highest"],
+                   help="score GEMM precision: default = phenotypes rounded "
+                        "to bf16 with f32 sums, highest = f32")
+    p.add_argument("--certify_topk", action="store_true",
+                   help="rank the scan's candidates by exact f64 re-scores, "
+                        "as gwas --certify_topk")
+    p.add_argument("--checkpoint", default=None,
+                   help="base path for resumable per-process kinship/scan "
+                        "checkpoints (<base>.kin.p<pid> / <base>.scan.p<pid>)")
+    p.add_argument("--checkpoint_every", type=int, default=20,
+                   help="batches between checkpoint writes")
+    p.add_argument("--coordinator", required=True,
+                   help="host:port of process 0")
+    p.add_argument("--num_processes", type=int, required=True)
+    p.add_argument("--process_id", type=int, required=True)
+
+    def run(a):
+        from ..parallel import multihost
+        from ..pipeline.gwas import GWASConfig, run_distributed_gwas
+        multihost.init_distributed(coordinator_address=a.coordinator,
+                                   num_processes=a.num_processes,
+                                   process_id=a.process_id)
+        res = run_distributed_gwas(GWASConfig(
+            pheno_path=a.pheno, kmers_table=a.kmers_table, outdir=a.outdir,
+            kmer_len=a.kmer_len, n_kmers=a.kmers_number,
+            n_permutations=a.permutations, maf=a.maf, mac=a.mac,
+            min_data_points=a.min_data_points, batch_size=a.batch_size,
+            pattern_counter=a.pattern_counter, kinship_path=a.kinship,
+            seed=a.seed, device=a.device, dtable_cache=a.dtable_cache,
+            n_extra_phenotype_kmers=a.n_extra_phenotype_kmers,
+            remove_intermediates=not a.dont_remove_intermediates,
+            lmm_backend=a.lmm_backend, score_precision=a.score_precision,
+            certify_topk=a.certify_topk, checkpoint_base=a.checkpoint,
+            checkpoint_every=a.checkpoint_every))
+        if res is not None:
+            th5 = res.thresholds.get("5per")
+            print(f"threshold_5per={th5 if th5 is not None else 'n/a'} "
+                  f"pass_5per={len(res.pass_5per)} tested={res.n_tested}")
+        else:
+            print(f"process {a.process_id}: scan complete "
+                  "(process 0 writes the results)")
+    p.set_defaults(func=run)
+
+
+def _native_or_none(no_native: bool, command: str):
+    """The native ingest library, or None for the numpy route (asked for
+    with --no-native, or where the library cannot be built); the route is
+    told on stderr."""
+    from .. import native
+    lib = None if no_native else (native if native.ingest_available()
+                                  else None)
+    print(f"{command}: {'native' if lib else 'numpy'} route",
+          file=sys.stderr)
+    return lib
+
+
+def _add_count(sub):
+    p = sub.add_parser("count", help="count k-mers from FASTQ/FASTA files")
+    p.add_argument("-k", "--kmer_len", type=int, required=True)
+    p.add_argument("-o", "--output", required=True,
+                   help="binary kmer+count output")
+    p.add_argument("--canonize", action="store_true")
+    p.add_argument("--min_count", type=int, default=1)
+    p.add_argument("--no-native", action="store_true",
+                   help="force the NumPy ingest path")
+    p.add_argument("reads", nargs="+")
+
+    def run(a):
+        native = _native_or_none(a.no_native, "count")
+        if native is not None:
+            n = native.count(a.reads, a.kmer_len, a.canonize, a.min_count,
+                             a.output)
+        else:
+            from ..ingest import counter
+            kmers, counts = counter.count_kmers_in_files(
+                a.reads, a.kmer_len, canonize=a.canonize,
+                min_count=a.min_count)
+            _write_counts(a.output, kmers, counts)
+            n = len(kmers)
+        print(f"{n} distinct k-mers")
+    p.set_defaults(func=run)
+
+
+def _write_counts(path, kmers, counts):
+    rec = np.empty(len(kmers), dtype=[("k", "<u8"), ("c", "<u8")])
+    rec["k"], rec["c"] = kmers, counts
+    rec.tofile(path)
+
+
+# copy of kmersgwas_tpu.cli.__main__._read_counts
+def _read_counts(path):
+    rec = np.fromfile(path, dtype=[("k", "<u8"), ("c", "<u8")])
+    return rec["k"].copy(), rec["c"].copy()
+
+
+def _add_strand_merge(sub):
+    p = sub.add_parser("strand-merge",
+                       help="combine canonized + non-canonized counts into a "
+                            "strand-flagged sorted list "
+                            "(kmers_add_strand_information)")
+    p.add_argument("-c", "--canonized", required=True)
+    p.add_argument("-n", "--non_canonized", required=True)
+    p.add_argument("-k", "--kmer_len", type=int, required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--no-native", action="store_true")
+
+    def run(a):
+        native = _native_or_none(a.no_native, "strand-merge")
+        if native is not None:
+            n = native.strand_merge(a.canonized, a.non_canonized,
+                                    a.kmer_len, a.output)
+        else:
+            from ..ingest import strand
+            ck, _ = _read_counts(a.canonized)
+            nk, _ = _read_counts(a.non_canonized)
+            strand.write_strand_list(a.output, ck, nk, a.kmer_len)
+            n = len(ck)
+        print(f"{n} k-mers written")
+    p.set_defaults(func=run)
+
+
+def _add_list_kmers(sub):
+    p = sub.add_parser("list-kmers",
+                       help="union + MAC/strand filter across samples "
+                            "(list_kmers_found_in_multiple_samples)")
+    p.add_argument("-l", "--list_kmers_files", required=True,
+                   help="file with one strand-list path (and optional name) "
+                        "per line")
+    p.add_argument("-k", "--kmer_len", type=int, required=True)
+    p.add_argument("--mac", type=int, required=True)
+    p.add_argument("-p", "--min_strand_percent", type=float, required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--no-native", action="store_true")
+
+    def run(a):
+        with open(a.list_kmers_files) as f:
+            paths = [ln.split()[0] for ln in f if ln.strip()]
+        native = _native_or_none(a.no_native, "list-kmers")
+        if native is not None:
+            n = native.list_union(paths, a.kmer_len, a.mac,
+                                  a.min_strand_percent, a.output,
+                                  write_stats=True)
+        else:
+            from ..ingest import union
+            n, _ = union.build_master_list(paths, a.output, a.kmer_len,
+                                           a.mac, a.min_strand_percent)
+        print(f"passed kmers:\t{n}")
+    p.set_defaults(func=run)
+
+
+def _add_build_table(sub):
+    p = sub.add_parser("build-table",
+                       help="build the k-mers table (build_kmers_table)")
+    p.add_argument("-l", "--list_kmers_files", required=True,
+                   help="file with '<path> <accession>' per line")
+    p.add_argument("-k", "--kmer_len", type=int, required=True)
+    p.add_argument("-a", "--all_kmers", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--no-native", action="store_true")
+
+    def run(a):
+        with open(a.list_kmers_files) as f:
+            pairs = [ln.split() for ln in f if ln.strip()]
+        paths = [x[0] for x in pairs]
+        names = [x[1] if len(x) > 1 else x[0] for x in pairs]
+        native = _native_or_none(a.no_native, "build-table")
+        if native is not None:
+            n = native.build_table(paths, names, a.all_kmers, a.output,
+                                   a.kmer_len)
+        else:
+            from ..ingest import tablebuild
+            n = tablebuild.build_table(paths, names, a.all_kmers, a.output,
+                                       a.kmer_len)
+        print(f"rows: {n}")
     p.set_defaults(func=run)
 
 
@@ -354,18 +572,97 @@ def _add_associate_snps(sub):
     p.set_defaults(func=run)
 
 
+def _add_table_to_bed(sub):
+    p = sub.add_parser("table-to-bed",
+                       help="table -> PLINK shards (kmers_table_to_bed)")
+    p.add_argument("-t", "--kmers_table", required=True)
+    p.add_argument("-p", "--phenotype_file", required=True)
+    p.add_argument("--maf", type=float, required=True)
+    p.add_argument("--mac", type=int, required=True)
+    p.add_argument("-b", "--batch_size", type=int, required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-u", "--unique_patterns", action="store_true")
+
+    def run(a):
+        from ..pipeline.export import table_to_bed
+        n = table_to_bed(a.kmers_table, a.output, pheno_path=a.phenotype_file,
+                         maf=a.maf, mac=a.mac, batch_size=a.batch_size,
+                         unique_patterns=a.unique_patterns)
+        print(f"wrote {n} variants")
+    p.set_defaults(func=run)
+
+
+def _add_filter_kmers(sub):
+    p = sub.add_parser("filter-kmers",
+                       help="presence patterns of k-mers (filter_kmers)")
+    p.add_argument("-t", "--kmers_table", required=True)
+    p.add_argument("-k", "--kmers_file", required=True)
+    p.add_argument("-o", "--output", required=True)
+
+    def run(a):
+        from ..pipeline.export import filter_kmers_to_text
+        with open(a.kmers_file) as f:
+            queries = [w for w in f.read().split() if w]
+        n = filter_kmers_to_text(a.kmers_table, queries, a.output)
+        print(f"found {n} of {len(queries)}")
+    p.set_defaults(func=run)
+
+
+def _add_kmc(sub):
+    p = sub.add_parser("kmc-import",
+                       help="convert a KMC .kmc_pre/.kmc_suf database "
+                            "(version 1 or 2/3) to a binary kmer+count file")
+    p.add_argument("kmc_base")
+    p.add_argument("-o", "--output", required=True)
+
+    def run(a):
+        from ..ingest import kmc
+        kmers, counts, k = kmc.read_kmc(a.kmc_base)
+        _write_counts(a.output, kmers, counts)
+        print(f"{len(kmers)} k-mers (k={k})")
+    p.set_defaults(func=run)
+
+    pe = sub.add_parser("kmc-export",
+                        help="write a count file as a KMC1-format database")
+    pe.add_argument("counts_file")
+    pe.add_argument("-k", "--kmer_len", type=int, required=True)
+    pe.add_argument("-o", "--output_base", required=True)
+
+    def run_e(a):
+        from ..ingest import kmc
+        kk, cc = _read_counts(a.counts_file)
+        kmc.write_kmc1(a.output_base, kk, cc, a.kmer_len)
+        print(f"wrote {len(kk)} k-mers")
+    pe.set_defaults(func=run_e)
+
+
+def _add_histogram(sub):
+    p = sub.add_parser("histogram",
+                       help="k-mer count histogram "
+                            "(histogram_KMC_kmers_counts)")
+    p.add_argument("counts_file", help="binary kmer+count file from `count`")
+
+    def run(a):
+        from ..ingest.counter import counts_histogram
+        _, counts = _read_counts(a.counts_file)
+        hist = counts_histogram(counts)
+        print("appearance\tcount")
+        for i, c in enumerate(hist):
+            print(f"{i}\t{c}")
+    p.set_defaults(func=run)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="kmersgwas_tpu_torch",
         description="k-mer GWAS in PyTorch + CUDA")
     sub = ap.add_subparsers(dest="command", required=True)
-    _add_gwas(sub)
-    _add_associate(sub)
-    _add_associate_mp(sub)
-    _add_kinship(sub)
-    _add_kinship_mp(sub)
-    _add_kinship_bed(sub)
-    _add_associate_snps(sub)
+    for add in (_add_gwas, _add_gwas_mp, _add_count, _add_strand_merge,
+                _add_list_kmers, _add_build_table, _add_associate,
+                _add_associate_mp, _add_kinship, _add_kinship_mp,
+                _add_kinship_bed, _add_associate_snps, _add_table_to_bed,
+                _add_filter_kmers, _add_kmc, _add_histogram):
+        add(sub)
     args = ap.parse_args(argv)
     return args.func(args)
 

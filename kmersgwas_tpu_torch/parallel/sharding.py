@@ -33,6 +33,20 @@ def all_gather_np(a: np.ndarray) -> np.ndarray:
     return torch.stack(out).numpy()
 
 
+def broadcast_np(a: np.ndarray, src: int = 0) -> np.ndarray:
+    """Process `src`'s `a` on every process (each passes an array of the
+    same shape and dtype), over the default process group. The payload
+    travels as its raw bytes viewed as int64 words where the size allows
+    (uint8 otherwise), so float64 values arrive bit for bit, NaN payloads
+    and signed zeros included."""
+    a = np.ascontiguousarray(a)
+    raw = a.reshape(-1).view(np.uint8)
+    wire = raw.view(np.int64) if raw.size % 8 == 0 else raw
+    t = torch.from_numpy(wire.copy())
+    dist.broadcast(t, src=src)
+    return t.numpy().view(np.uint8).view(a.dtype).reshape(a.shape)
+
+
 # copy of kmersgwas_tpu.parallel.sharding.host_range_of_kmer_space
 def host_range_of_kmer_space(host_id: int, n_hosts: int, kmer_len: int):
     """Contiguous uint62 k-mer range owned by `host_id`, cut at the

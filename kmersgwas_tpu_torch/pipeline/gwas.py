@@ -17,8 +17,11 @@ Where each stage runs: kinship (K7, or from the SNP bed with
 pins it too (stats/transform.py says why). "cuda" without a card raises;
 no stage moves to the CPU when the card is missing or a kernel fails.
 
-Artifacts carry the reference's names under `outdir`. The multi-process
-`run_distributed_gwas` is not ported yet.
+Artifacts carry the reference's names under `outdir`. `run_distributed_gwas`
+is the same pipeline over several processes (the `gwas-mp` command): the
+distributed kinship and scan of parallel/multihost.py, the transform on
+process 0 broadcast to all, and stages 5-6 on process 0 through the same
+`_post_scan_stages`.
 """
 from __future__ import annotations
 
@@ -130,11 +133,10 @@ def _refuse_unported(cfg: GWASConfig) -> None:
             "kmersgwas_tpu_torch runs single-device gwas only")
 
 
-def run_gwas(cfg: GWASConfig) -> GWASResult:
-    _refuse_unported(cfg)
-    dev = require_device(cfg.device)
-    out = Path(cfg.outdir)
-    out.mkdir(parents=True, exist_ok=True)
+def _stage_log(dev: torch.device):
+    """(log_lines, stage_seconds, log, stage) of one pipeline run: `log`
+    appends a line to log_file's, `stage(name)` times a block into
+    stage_seconds, the device synchronized before the clock is read."""
     log_lines = []
     stage_seconds = {}
 
@@ -150,7 +152,20 @@ def run_gwas(cfg: GWASConfig) -> GWASResult:
         dt = time.perf_counter() - t0
         stage_seconds[name] = stage_seconds.get(name, 0.0) + dt
         log(f"[stage] {name}: {dt:.2f}s")
+    return log_lines, stage_seconds, log, stage
 
+
+def _prepare(cfg: GWASConfig, dev: torch.device, out: Path, log, stage,
+             kinship_fn, transform_fn, write: bool = True,
+             kinship_note: str = ""):
+    """Stages 1-3 of run_gwas and run_distributed_gwas -> (used, y, K, tr).
+
+    kinship_fn(table, device=, maf=, dtable_cache=, checkpoint_path=,
+    checkpoint_every=) computes the kinship when none is given or cached
+    (kinship_from_table, or the distributed run_distributed_kinship);
+    transform_fn(y, K) the TransformResult (run_distributed_gwas's runs
+    on process 0 and broadcasts it). Only a process with `write` writes
+    the kinship cache and the pheno.* files."""
     # 1. phenotype: load + average duplicate accessions
     pheno = formats.read_phenotypes(cfg.pheno_path)
     accs, vals = average_phenotypes(pheno.accessions, pheno.values[:, 0])
@@ -177,40 +192,59 @@ def run_gwas(cfg: GWASConfig) -> GWASResult:
     elif os.path.exists(cfg.kmers_table + ".kinship"):
         K_full = kinship_mod.read_kinship(cfg.kmers_table + ".kinship")
     else:
-        log("computing kinship from k-mers table")
+        log("computing kinship from k-mers table" + kinship_note)
         with stage("kinship"):
             # the scan's dtable cache feeds kinship too when its stored
             # filter matches (kinship_from_table validates and falls back)
-            K_full = kinship_mod.kinship_from_table(
+            K_full = kinship_fn(
                 cfg.kmers_table, device=dev, maf=cfg.kinship_maf,
                 dtable_cache=cfg.dtable_cache,
                 checkpoint_path=(cfg.checkpoint_base + ".kin"
                                  if cfg.checkpoint_base else None),
                 checkpoint_every=cfg.checkpoint_every)
-        _persist_kinship(cfg, out, K_full, log)
+        if write:
+            _persist_kinship(cfg, out, K_full, log)
 
     used, y, K = intersect_accessions(accs, vals, kin_names, K_full,
                                       table_names)
     n = len(used)
     if n < cfg.min_data_points:
-        (out / "NOT_ENOUGH_DATA").touch()
+        if write:
+            (out / "NOT_ENOUGH_DATA").touch()
         raise ValueError(f"only {n} phenotyped accessions "
                          f"(< {cfg.min_data_points})")
-    np.savetxt(out / "pheno.kinship", K, delimiter="\t")
-    formats.write_phenotypes(out / "pheno.phenotypes", formats.PhenotypeTable(
-        names=["phenotype_value"], accessions=used, values=y[:, None]))
+    if write:
+        np.savetxt(out / "pheno.kinship", K, delimiter="\t")
+        formats.write_phenotypes(out / "pheno.phenotypes",
+                                 formats.PhenotypeTable(
+                                     names=["phenotype_value"],
+                                     accessions=used, values=y[:, None]))
 
     # 3. transform + permutations (float64, host CPU by design)
     with stage("transform"):
-        tr = transform_mod.transform_and_permute(y, K, cfg.n_permutations,
-                                                 seed=cfg.seed)
+        tr = transform_fn(y, K)
     log(f"EMMA vg={tr.vg} ve={tr.ve} herit={tr.heritability}")
-    formats.write_phenotypes(out / "pheno.phenotypes_and_permutations",
-                             formats.PhenotypeTable(tr.names, used,
-                                                    tr.phenotypes))
-    formats.write_phenotypes(out / "pheno.phenotypes_permuted_transformed",
-                             formats.PhenotypeTable(tr.names, used,
-                                                    tr.transformed))
+    if write:
+        formats.write_phenotypes(out / "pheno.phenotypes_and_permutations",
+                                 formats.PhenotypeTable(tr.names, used,
+                                                        tr.phenotypes))
+        formats.write_phenotypes(
+            out / "pheno.phenotypes_permuted_transformed",
+            formats.PhenotypeTable(tr.names, used, tr.transformed))
+    return used, y, K, tr
+
+
+def run_gwas(cfg: GWASConfig) -> GWASResult:
+    _refuse_unported(cfg)
+    dev = require_device(cfg.device)
+    out = Path(cfg.outdir)
+    out.mkdir(parents=True, exist_ok=True)
+    log_lines, stage_seconds, log, stage = _stage_log(dev)
+    used, y, K, tr = _prepare(
+        cfg, dev, out, log, stage, kinship_mod.kinship_from_table,
+        lambda y, K: transform_mod.transform_and_permute(
+            y, K, cfg.n_permutations, seed=cfg.seed))
+    n = len(used)
 
     # 3b. optional SNP arm (kmers_gwas.py:179-223)
     snp_summary = {}
@@ -452,3 +486,124 @@ def _write_assoc_txt(path, result, j, kmer_len, n, pvals, lam, beta):
         for i, s in enumerate(strs):
             f.write(f"0\t{s}_{i+1}\t0\t0\t1\t0\t{afs[i]:.6f}\t"
                     f"{10**lam[i]:.6e}\t{pvals[i]:.6e}\n")
+
+
+def run_distributed_gwas(cfg: GWASConfig):
+    """The one-command multi-process GWAS (port of kmersgwas_tpu.pipeline.
+    gwas.run_distributed_gwas): every process calls this in lockstep after
+    `parallel.multihost.init_distributed()`, on its own device (process i
+    takes card i modulo the count, so several may share one card).
+
+      1-2. phenotype load/averaging + the accession intersection (every
+           process, deterministic host work)
+      2b.  kinship: given, cached beside the table, or the distributed
+           kinship (K7 on each process's k-mer span; process 0 persists it)
+      3.   REML + permutations + GRAMMAR transform on process 0 only, its
+           float64 arrays broadcast bit for bit (sharding.broadcast_np), so
+           every process scans the same columns
+      4.   the distributed scan (K3 on each span)
+      5-6. on process 0: the winners' rows (fetch_rows), the selection of
+           `associate` (select_candidates, certify_topk included) and the
+           same `_post_scan_stages` as `run_gwas`, so equal candidates
+           write equal artifacts; summary.json gains "n_processes"
+
+    Returns the GWASResult on process 0 and None on the others, which
+    return after the scan's last collective.
+
+    `cfg.checkpoint_base` makes both long stages resumable per process
+    (`<base>.kin.p<pid>.npz` / `<base>.scan.p<pid>.npz`), refused under
+    another topology. The SNP arm is single-process only (run_gwas): its
+    options raise ValueError, as in the JAX package."""
+    from ..core.table import KmersTableReader
+    from ..parallel import multihost
+    from ..parallel import sharding as shard_mod
+
+    if cfg.run_snps or cfg.kinship_snps or not cfg.run_kmers:
+        raise ValueError("the SNP arm is single-process only; use run_gwas")
+    _refuse_unported(cfg)
+    dev = require_device(cfg.device)
+    n_proc, pid = shard_mod.world()
+    out = Path(cfg.outdir)
+    out.mkdir(parents=True, exist_ok=True)
+    log_lines, stage_seconds, log, stage = _stage_log(dev)
+
+    def transform(y, K):
+        """The transform once, on process 0, broadcast bit for bit: no
+        process recomputes anything numeric."""
+        n = len(y)
+        if pid == 0:
+            tr0 = transform_mod.transform_and_permute(
+                y, K, cfg.n_permutations, seed=cfg.seed)
+            payload = (tr0.phenotypes, tr0.transformed,
+                       np.array([tr0.vg, tr0.ve, tr0.heritability]))
+        else:
+            z = np.zeros((n, 1 + cfg.n_permutations))
+            payload = (z, z.copy(), np.zeros(3))
+        if n_proc > 1:
+            payload = tuple(shard_mod.broadcast_np(a) for a in payload)
+        phen, transf, vvh = payload
+        names = ["phenotype_value"] + [f"P{i}" for i in
+                                       range(1, cfg.n_permutations + 1)]
+        return transform_mod.TransformResult(
+            vg=float(vvh[0]), ve=float(vvh[1]), heritability=float(vvh[2]),
+            names=names, phenotypes=phen, transformed=transf)
+
+    used, y, K, tr = _prepare(cfg, dev, out, log, stage,
+                              multihost.run_distributed_kinship, transform,
+                              write=pid == 0, kinship_note=" (distributed)")
+    n = len(used)
+
+    # 4. distributed association scan; with certify_topk every column
+    # carries associate's k_eff candidates (n_top, first_phenotype_top and
+    # the band), so the selection below sees what associate's sees
+    kmers_dir = out / "kmers"
+    kmers_dir.mkdir(exist_ok=True)
+    first = cfg.n_extra_phenotype_kmers
+    if cfg.certify_topk:
+        scan_top = max(cfg.n_kmers, first or 0) + scan_mod.CERTIFY_BAND
+        scan_first = None
+    else:
+        scan_top, scan_first = cfg.n_kmers, first
+    with stage("scan"):
+        per_pheno, n_tested, n_patterns = multihost.run_distributed_scan(
+            cfg.kmers_table, used, tr.transformed, tr.names,
+            kmer_len=cfg.kmer_len, device=dev, n_top=scan_top, maf=cfg.maf,
+            mac=cfg.mac, batch_size=cfg.batch_size,
+            first_phenotype_top=scan_first,
+            count_patterns=cfg.pattern_counter,
+            dtable_cache=cfg.dtable_cache,
+            score_precision=cfg.score_precision,
+            checkpoint_path=(cfg.checkpoint_base + ".scan"
+                             if cfg.checkpoint_base else None),
+            checkpoint_every=cfg.checkpoint_every)
+    if pid != 0:
+        return None     # every process holds the candidates: one writer
+
+    # 5-6. winners + exact LMM + thresholds on process 0, through the code
+    # of single-process run_gwas
+    t0 = time.perf_counter()
+    reader = KmersTableReader(cfg.kmers_table, names_to_use=used)
+    all_rows = (np.unique(np.concatenate([rw for _, rw in per_pheno]))
+                if any(len(rw) for _, rw in per_pheno)
+                else np.empty(0, np.int64))
+    kmer_of_row, pa_of_row = scan_mod.fetch_rows(reader,
+                                                 all_rows.astype(np.int64))
+    timings = {"fetch": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    scores, rows, kmers, certified = scan_mod.select_candidates(
+        per_pheno, kmer_of_row, pa_of_row, tr.transformed, reader.n_used,
+        cfg.n_kmers, first, cfg.certify_topk)
+    if cfg.certify_topk:
+        timings["certify"] = time.perf_counter() - t0
+    result = scan_mod.ScanResult(
+        names=list(tr.names), scores=scores, rows=rows, kmers=kmers,
+        n_tested=n_tested, n_patterns=n_patterns, pa_rows=pa_of_row,
+        timings=timings, certified=certified)
+    res = _post_scan_stages(cfg, out, kmers_dir, result, tr, used, K, n,
+                            log, log_lines, stage_seconds)
+    # provenance: the distributed topology
+    summary_path = out / "summary.json"
+    summary = json.loads(summary_path.read_text())
+    summary["n_processes"] = n_proc
+    summary_path.write_text(json.dumps(summary, indent=2))
+    return res

@@ -285,10 +285,34 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     timings["fetch"] = time.perf_counter() - t_fetch
 
     names = list(pheno_names)
+    t_cert = time.perf_counter()
+    scores_out, rows_out, kmers_out, certified = select_candidates(
+        per_pheno, kmer_of_row, pa_of_row, pheno_values, n_used, n_top,
+        first_phenotype_top, certify_topk)
+    if certify_topk:
+        timings["certify"] = time.perf_counter() - t_cert
+
+    return ScanResult(names=names, scores=scores_out, rows=rows_out,
+                      kmers=kmers_out, n_tested=n_tested,
+                      n_patterns=(patterns.count if patterns else None),
+                      pa_rows=pa_of_row, timings=timings,
+                      certified=certified, steps=steps)
+
+
+def select_candidates(per_pheno, kmer_of_row, pa_of_row, pheno_values,
+                      n_used: int, n_top: int,
+                      first_phenotype_top: int | None,
+                      certify_topk: bool):
+    """A finished scan's exact top-k candidates per column -> (scores, rows,
+    k-mer codes, certified) of the top `n_top` (`first_phenotype_top` in
+    column 0). certify_topk: the candidates carry CERTIFY_BAND extra slots;
+    each is re-scored exactly in f64, the columns are re-ranked by (exact
+    score desc, row asc) and each is certified (certify_column); certified
+    is None otherwise. `associate` and `run_distributed_gwas` both select
+    through here, so equal candidates give equal artifacts."""
     scores_out, rows_out, kmers_out = [], [], []
     certified = [] if certify_topk else None
     if certify_topk:
-        t_cert = time.perf_counter()
         # the oracle scores what the scan scored: the f32-cast phenotypes,
         # re-accumulated in f64
         yv = np.asarray(pheno_values, np.float32).astype(np.float64)
@@ -314,14 +338,7 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
         scores_out.append(sc)
         rows_out.append(rw)
         kmers_out.append(np.asarray(kmer_of_row.take(rw), dtype=np.uint64))
-    if certify_topk:
-        timings["certify"] = time.perf_counter() - t_cert
-
-    return ScanResult(names=names, scores=scores_out, rows=rows_out,
-                      kmers=kmers_out, n_tested=n_tested,
-                      n_patterns=(patterns.count if patterns else None),
-                      pa_rows=pa_of_row, timings=timings,
-                      certified=certified, steps=steps)
+    return scores_out, rows_out, kmers_out, certified
 
 
 # copy of kmersgwas_tpu.pipeline.scan.RowLookup

@@ -42,12 +42,22 @@ def test_port_imports_without_jax_or_a_build():
         "import kmersgwas_tpu_torch.tools.exp_kernel\n"
         "import kmersgwas_tpu_torch.ops.tilereduce\n"
         "import kmersgwas_tpu_torch.native\n"
+        "import kmersgwas_tpu_torch.ingest.streamio\n"
+        "import kmersgwas_tpu_torch.ingest.counter\n"
+        "import kmersgwas_tpu_torch.ingest.strand\n"
+        "import kmersgwas_tpu_torch.ingest.union\n"
+        "import kmersgwas_tpu_torch.ingest.tablebuild\n"
+        "import kmersgwas_tpu_torch.ingest.kmc\n"
+        "import kmersgwas_tpu_torch.pipeline.export\n"
+        "import kmersgwas_tpu_torch.examples.simulated_ecoli_like\n"
         "from kmersgwas_tpu_torch.ops import _cuda\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not [m for m in sys.modules if m == 'kmersgwas_tpu'\n"
         "            or m.startswith('kmersgwas_tpu.')], 'JAX package imported'\n"
         "assert _cuda.library.cache_info().currsize == 0, 'library loaded'\n"
         "assert kmersgwas_tpu_torch.native.load.cache_info().currsize == 0\n"
+        "assert kmersgwas_tpu_torch.native.load_ingest.cache_info()"
+        ".currsize == 0\n"
         "print('ok')\n")
     env = dict(os.environ, PATH="/usr/bin:/bin")      # no nvcc on PATH
     env.pop("PYTHONPATH", None)
