@@ -153,8 +153,23 @@ Phases (each prints its own lines; any failure exits non-zero):
      kinship the float64 Gram's; `filter-kmers` and
      `table-to-bed -u` on the passing k-mers equal to the table's rows; a
      `kmc-export` -> `kmc-import` round trip and `histogram`; each step's
-     wall, the table's rows and bytes, the host's cores; the smoke's wall
-     time.
+     wall, the table's rows and bytes, the host's cores;
+ 22. the single-process device mesh with its shards on the one card
+     (phase_mesh): `associate(mesh=)` over 2 and 4 shards on phase 3's
+     table equal to phase 3's result (rows, order, certified f64
+     re-scores; K1 on every shard's batch), `kinship_from_table(mesh=)`
+     over 2 shards equal to phase 8's K (K7 per shard), the legacy
+     sharded step (K4 per shard) and the buffered one (K2 per shard)
+     against a plain running top-k, and the CLI `associate`, `kinship`
+     and `gwas` with --devices 2 byte-identical to --devices 1;
+ 23. `gwas-mp` in 8 processes sharing the card on phase 21's table,
+     SIGKILLed once every process's scan checkpoint exists, then run
+     again: phase 21's `gwas` artifacts byte for byte (phase_crash_resume);
+     the walls of the killed and the resumed runs;
+ 24. the five tools without a TPU kernel (prof_step, prof_r5_certify,
+     prof_r5_feedgap, bench_ingest, at_scale_run), each once in a new
+     process at a reduced size: exit 0 and JSON that parses
+     (phase_tools); the smoke's wall time.
 The script writes its inputs itself and imports nothing of the JAX
 package. The bench's and the at-scale stream's JSON lines come on earlier
 lines. The line before the last is the kernels' JSON record (per kernel:
@@ -1130,7 +1145,8 @@ def phase_main(workdir, n_rows=4_200_000, p=101, k=10001, batch=2_000_000,
              f"column {j}: certified scores differ from the f64 oracle")
     log(f"main: all {p} columns certified; columns {list(check_cols)} equal "
         f"the f64 oracle's top-{k} (oracle {time.perf_counter() - t0:.1f} s)")
-    return dict(k1=k1, k2=k2, base=base, dtable=dtable, names=names, y=y,
+    return dict(k1=k1, k2=k2, res=res, k=k, batch=batch, base=base,
+                dtable=dtable, names=names, y=y,
                 cols=cols, n_tested=int(keep.sum()), kmer_len=kmer_len,
                 keep=keep, n=n)
 
@@ -3797,6 +3813,7 @@ def phase_ingest(workdir, env, n_acc=INGEST_ACCESSIONS,
     with Capture(gwas_mod.transform_mod, "transform_and_permute") as c_tr, \
             Capture(gwas_mod.scan_mod, "associate") as c_sr:
         o, _ = cli_run(["gwas", "--outdir", one_out, *args])
+    gwas_line = o.strip()
     if device == "cuda":
         torch.cuda.synchronize()
     walls["gwas"] = time.perf_counter() - t1
@@ -4026,13 +4043,384 @@ def phase_ingest(workdir, env, n_acc=INGEST_ACCESSIONS,
                                         for w, v in walls.items()}))
     return dict(k1=k1, k2=k2 + mp["k2"], k3=mp["k3"], k7=k7 + mp["k7"],
                 k7t=k7t + mp["k7t"], walls=walls, rows=n_rows,
-                table_bytes=table_bytes)
+                table_bytes=table_bytes, table=table, args=args,
+                one_out=one_out, line=gwas_line, code=code)
 
 
 def last_line(text, prefix):
     """The last line of `text` that starts with `prefix` ("" if none)."""
     hits = [ln for ln in text.splitlines() if ln.startswith(prefix)]
     return hits[-1] if hits else ""
+
+
+# ---------------------------------------------------------------- phase 22
+
+def cli_files(out):
+    """{path relative to out: bytes} of every file under out, times
+    aside: a gwas run's log_file, and its summary.json without its
+    stage_seconds."""
+    files = gwas_outputs(out)
+    files.pop("log_file", None)
+    if "summary.json" in files:
+        sm = json.loads(files["summary.json"])
+        sm.pop("stage_seconds")
+        files["summary.json"] = json.dumps(sm, sort_keys=True).encode()
+    return files
+
+
+def phase_mesh(main, kin, workdir, shards=(2, 4), steps_rows=1 << 21,
+               n_steps=3, device="cuda"):
+    """The single-process device mesh (phase 22), its shards all on the
+    one card (sharding.make_mesh([cuda:0] * D)), so the sharded path runs
+    for real: per-shard states, per-shard kernel launches, the cross-shard
+    merge at finalize.
+
+      a. `associate(mesh=)` with D = 2 and 4 on phase 3's table and
+         arguments (certify_topk): every column certified, the same rows
+         in the same order as phase 3's single-device result and the f64
+         re-scores bit-equal; K1 launched D times a batch;
+      b. `kinship_from_table(mesh=)` with 2 shards: phase 8's K bit for
+         bit (K7 on each shard);
+      c. the legacy plain step (build_sharded_scan_step: K4 on each shard,
+         the shards' candidates merged into the state) and the buffered
+         step (build_sharded_scan_step_buffered: K2 on each shard, merged
+         at finalize), 2 shards, n_steps device-made batches at N=1008,
+         P=101, top-10001: both equal a plain running top-k (scores and
+         rows);
+      d. the CLI `associate`, `kinship` and `gwas` with `--devices 2` on
+         phase 5's table (phase 18's phenotype for gwas): stdout and every
+         file byte-identical to `--devices 1` (summary.json but its stage
+         times).
+    The K1, K2, K4 and K7 counts of the phase are returned; each must be
+    positive."""
+    import torch
+    from kmersgwas_tpu_torch.ops import kinship as kin_ops
+    from kmersgwas_tpu_torch.ops import score, topk
+    from kmersgwas_tpu_torch.parallel import sharding
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    from kmersgwas_tpu_torch.pipeline import scan
+    cuda = device == "cuda"
+    counters = {"k1": score.score_batch_t_topw,
+                "k2": score.score_batch_t_bmax, "k4": score.score_batch_t,
+                "k7": kin_ops.kinship_accumulate,
+                "k7t": kin_ops.transpose_bits}
+    for c in counters.values():
+        c.launches = 0
+    ref = main["res"]
+    n_batches = -(-main["n_tested"] // main["batch"])
+    walls = {}
+
+    # a. associate over D shards of the card
+    for d in shards:
+        mesh = sharding.make_mesh([device] * d)
+        k1 = score.score_batch_t_topw.launches
+        t0 = time.perf_counter()
+        res = scan.associate(main["base"], main["names"], main["y"],
+                             main["cols"], kmer_len=main["kmer_len"],
+                             device=device, dtable_cache=main["dtable"],
+                             n_top=main["k"], batch_size=main["batch"],
+                             certify_topk=True, mesh=mesh,
+                             progress=lambda r: None)
+        walls[f"associate D={d}"] = time.perf_counter() - t0
+        k1 = score.score_batch_t_topw.launches - k1
+        st = res.steps
+        log(f"mesh: associate over {d} shards of {device}: wall "
+            f"{walls[f'associate D={d}']:.2f} s (phase 3: one device), "
+            f"timings " + json.dumps({a: round(b, 4)
+                                      for a, b in res.timings.items()})
+            + f"; step ms median {1e3 * statistics.median(st['step_s']):.2f}"
+            f" over {len(st['step_s'])}; shard steps narrow {st['narrow']} "
+            f"wide {st['wide']} fallback {st['fallback']} flush "
+            f"{st['flush']}; K1 launches {k1}")
+        need(k1 == d * n_batches or not cuda,
+             f"mesh: K1 launched {k1} times for {d} x {n_batches} shard "
+             "batches")
+        need(res.n_tested == ref.n_tested and all(res.certified),
+             f"mesh D={d}: n_tested {res.n_tested}, certified "
+             f"{sum(res.certified)}/{len(res.certified)}")
+        bad = [j for j in range(len(ref.rows))
+               if not (np.array_equal(res.rows[j], ref.rows[j])
+                       and np.array_equal(res.scores[j], ref.scores[j]))]
+        need(not bad, f"mesh D={d}: columns {bad[:5]} differ from the "
+             "single-device run")
+        log(f"mesh: D={d}: all {len(ref.rows)} columns certified, rows, "
+            f"order and f64 re-scores equal the single-device run's")
+
+    # b. kinship over 2 shards
+    mesh = sharding.make_mesh([device] * 2)
+    k7 = kin_ops.kinship_accumulate.launches
+    t0 = time.perf_counter()
+    K = km.kinship_from_table(main["base"], device=device, maf=0.05,
+                              batch_size=1 << 20, mesh=mesh,
+                              dtable_cache=main["dtable"])
+    walls["kinship D=2"] = time.perf_counter() - t0
+    k7 = kin_ops.kinship_accumulate.launches - k7
+    need(np.array_equal(K, kin["K"]),
+         f"mesh: kinship differs from phase 8's in "
+         f"{int((K != kin['K']).sum())} entries")
+    need(k7 >= 2 * -(-main["n_tested"] // (1 << 20)) - 1 or not cuda,
+         f"mesh: K7 launched {k7} times")
+    log(f"mesh: kinship over 2 shards equals phase 8's bit for bit "
+        f"({walls['kinship D=2']:.2f} s, K7 launches {k7})")
+
+    # c. the legacy and the buffered step over 2 shards
+    n, p, k = main["n"], len(main["cols"]), main["k"]
+    min_count = scan.effective_min_count(n, 0.05, 5)
+    y = dyadic(np.random.default_rng(22), (n, p))
+    yp, ysum = score.prepare_phenotypes(y, -(-n // 128) * 128, device)
+    yps, ysums = sharding.replicate(mesh, yp, ysum)
+    legacy = sharding.build_sharded_scan_step(
+        mesh, n_used=n, min_count=min_count, k=k)
+    buffered = sharding.build_sharded_scan_step_buffered(
+        mesh, n_used=n, min_count=min_count, cand_c=512, cand_k=2048)
+    st_l = topk.init_state(p, k, device)
+    st_b = sharding.init_sharded_buffered_state(mesh, p, k, 512 * 8)
+    ov = torch.full((p, k), float("-inf"), device=device)
+    orow = torch.zeros((p, k), dtype=torch.int64, device=device)
+    k2, k4 = score.score_batch_t_bmax.launches, score.score_batch_t.launches
+    ms = {"legacy": [], "buffered": []}
+    for b in range(n_steps):
+        packed, pc = make_planes(steps_rows, n, seed=2200 + b, device=device)
+        lo = torch.arange(b * steps_rows, (b + 1) * steps_rows,
+                          dtype=torch.int32, device=device)
+        batch = sharding.shard_batch(mesh, [packed, pc, lo,
+                                            torch.zeros_like(lo)])
+        for name in ms:
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "legacy":
+                st_l = legacy(st_l, *batch, yps, ysums)
+            else:
+                buffered(st_b, *batch, yps, ysums)
+            if cuda:
+                torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+        sc = score.scores_t_plain(packed, pc, yp, ysum, n_used=n,
+                                  min_count=min_count)
+        v, j = torch.sort(torch.cat([ov, sc], dim=1), dim=1,
+                          descending=True, stable=True)
+        j = j[:, :k]
+        orow = torch.where(j < k, orow.gather(1, j.clamp(max=k - 1)),
+                           b * steps_rows + j - k)
+        ov = v[:, :k].contiguous()
+        del sc, v, j, batch
+    k2 = score.score_batch_t_bmax.launches - k2
+    k4 = score.score_batch_t.launches - k4
+    want = [(ov[j].double().cpu().numpy(), orow[j].cpu().numpy())
+            for j in range(p)]
+    for name, got in (("legacy", topk.finalize(st_l)),
+                      ("buffered", sharding.finalize_sharded_buffered(st_b))):
+        bad = [j for j in range(p) if not (
+            np.array_equal(got[j][0], want[j][0])
+            and np.array_equal(got[j][1], want[j][1]))]
+        need(not bad, f"mesh: the sharded {name} step's columns {bad[:5]} "
+             "differ from the plain running top-k")
+    need((k4 == 2 * n_steps and k2 >= 2) or not cuda,
+         f"mesh: K4 launched {k4} times, K2 {k2}")
+    log(f"mesh: the legacy step (K4 x {k4}) and the buffered step (K2 x "
+        f"{k2}) over 2 shards, {n_steps} batches of {steps_rows} rows, "
+        f"N={n} P={p} top-{k}: both equal the plain running top-k; step ms "
+        + json.dumps({a: [round(x, 2) for x in b] for a, b in ms.items()}))
+
+    # d. the CLI with --devices 2 against --devices 1
+    small = os.path.join(workdir, "small")
+    pheno = os.path.join(workdir, "small.pheno")
+    gpheno = os.path.join(workdir, "gwas_small.pheno")
+    need(os.path.exists(gpheno), "mesh: phase 18's phenotype is missing")
+    for cmd in ("associate", "kinship", "gwas"):
+        outs = []
+        for d in (1, 2):
+            out = os.path.join(workdir, f"mesh_{cmd}_{d}")
+            os.makedirs(out)
+            argv = {
+                "associate": ["associate", "-p", pheno, "-b", "small", "-o",
+                              out, "--kmers_table", small, "-n", "100",
+                              "--batch_size", "4096", "--kmer_len", "31",
+                              "--pattern_counter", "--kmers_scores"],
+                "kinship": ["kinship", "-t", small, "--maf", "0.05",
+                            "--batch_size", "4096"],
+                "gwas": ["gwas", "--pheno", gpheno, "--kmers_table", small,
+                         "--outdir", out, "-l", "31", "-k", "100",
+                         "--permutations", "10", "--batch_size", "4096",
+                         "--certify_topk"],
+            }[cmd] + ["--device", device, "--devices", str(d)]
+            if os.path.exists(small + ".kinship"):
+                os.remove(small + ".kinship")   # each gwas computes kinship
+            t0 = time.perf_counter()
+            o, _ = cli_run(argv)
+            walls[f"{cmd} --devices {d}"] = time.perf_counter() - t0
+            outs.append((o, cli_files(out)))
+        (o1, f1), (o2, f2) = outs
+        need(o1 == o2 and o1, f"mesh: {cmd} --devices 2 printed {o2!r}, "
+             f"--devices 1 {o1!r}")
+        diff = sorted(set(f1) ^ set(f2)) + [f for f in f1 if f in f2
+                                             and f1[f] != f2[f]]
+        need(not diff, f"mesh: {cmd} --devices 2 differs: {diff}")
+        log(f"mesh: {cmd} --devices 2 --device {device}: stdout and "
+            f"{len(f1)} files byte-identical to --devices 1 "
+            f"({walls[f'{cmd} --devices 1']:.1f} / "
+            f"{walls[f'{cmd} --devices 2']:.1f} s)")
+    launches = {name: c.launches for name, c in counters.items()}
+    need(all(launches.values()) or not cuda,
+         f"mesh: a kernel of the sharded path never launched: {launches}")
+    log("mesh: launches " + json.dumps(launches) + "; walls "
+        + json.dumps({a: round(b, 2) for a, b in walls.items()}))
+    return launches
+
+
+# ---------------------------------------------------------------- phase 23
+
+def phase_crash_resume(ing, workdir, n_proc=8, batch=100_000, device="cuda",
+                       timeout=600):
+    """`gwas-mp` killed with SIGKILL mid-scan and resumed (phase 23): the
+    command of phase 21's `gwas` with --checkpoint (every batch) and
+    batches of `batch` rows (several per process), in n_proc processes
+    sharing the card, on phase 21's table with its cached kinship removed
+    (so the killed attempt runs the distributed kinship, K7, and its
+    process 0 caches the matrix beside the table, where the resumed run
+    reads it). Every process is killed once all n_proc scan checkpoints
+    exist while every process still runs; the same command is run again
+    and must end 0 and write phase 21's `gwas` artifacts byte for byte
+    (summary.json but n_processes and the stage times), every column
+    certified. Returns the resumed ranks' launches (K3 and K2; K7 none,
+    the kinship being cached)."""
+    import signal
+    import socket
+    args = list(ing["args"])
+    args[args.index("--batch_size") + 1] = str(batch)
+    table = ing["table"]
+    if os.path.exists(table + ".kinship"):
+        os.remove(table + ".kinship")
+    ck = os.path.join(workdir, "crash_ck")
+    out = os.path.join(workdir, "crash_mp")
+    scan_cks = [f"{ck}.scan.p{i}.npz" for i in range(n_proc)]
+    walls = {}
+
+    def launch():
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        cmd = [sys.executable, "-c", ing["code"], "gwas-mp", "--outdir",
+               out, *args, "--checkpoint", ck, "--checkpoint_every", "1",
+               "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+               str(n_proc)]
+        return [subprocess.Popen(cmd + ["--process_id", str(i)], cwd=ROOT,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for i in range(n_proc)]
+
+    t0 = time.perf_counter()
+    procs = launch()
+    try:
+        while time.perf_counter() - t0 < timeout and all(
+                pr.poll() is None for pr in procs):
+            if all(os.path.exists(p) for p in scan_cks):
+                break
+            time.sleep(0.05)
+        alive = all(pr.poll() is None for pr in procs)
+        ready = all(os.path.exists(p) for p in scan_cks)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.send_signal(signal.SIGKILL)
+        logs = [pr.communicate()[0] for pr in procs]
+    walls["killed"] = time.perf_counter() - t0
+    need(alive and ready, "crash: the checkpoints never all appeared while "
+         "every process ran:\n" + "\n".join(x[-1500:] for x in logs))
+    need(all(pr.returncode == -signal.SIGKILL for pr in procs),
+         f"crash: exit codes {[pr.returncode for pr in procs]}")
+    need(not os.path.exists(os.path.join(out, "kmers", "threshold_5per")),
+         "crash: results were written before the kill")
+    tested = [int(np.load(p)["n_tested"]) for p in scan_cks]
+    log(f"crash: {n_proc} gwas-mp processes SIGKILLed "
+        f"{walls['killed']:.1f} s after their start, their scan "
+        f"checkpoints holding {sum(tested)} tested k-mers ({tested})")
+
+    t0 = time.perf_counter()
+    procs = launch()
+    try:
+        logs = [pr.communicate(timeout=timeout)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    walls["resumed"] = time.perf_counter() - t0
+    for i, (pr, text) in enumerate(zip(procs, logs)):
+        need(pr.returncode == 0, f"crash: resumed rank {i} exited "
+             f"{pr.returncode}:\n{text[-3000:]}")
+    ranks = [json.loads(last_line(t, "launches ").split(" ", 1)[1])
+             for t in logs]
+    cert = json.loads(last_line(logs[0], "certified ").split(" ", 1)[1])
+    mp = {c: sum(r[c] for r in ranks) for c in ranks[0]}
+    line = last_line(logs[0], "threshold_5per=")
+    need(line == ing["line"], f"crash: process 0 said {line!r}, phase 21's "
+         f"gwas {ing['line']!r}")
+    need(len(cert) == 1 and all(cert[0]), f"crash: certified {cert}")
+    need(sum(tested) < int(line.split("tested=")[1]),
+         "crash: the scan had ended before the kill")
+    a, b = gwas_outputs(out), gwas_outputs(ing["one_out"])
+    diff = sorted(set(a) ^ set(b)) + [
+        f for f in b if f in a and f not in ("summary.json", "log_file")
+        and a[f] != b[f]]
+    need(not diff, f"crash: the resumed artifacts differ from gwas's: "
+         f"{diff}")
+    sa, sb = (json.loads(x["summary.json"]) for x in (a, b))
+    need(sa.pop("n_processes") == n_proc and all(
+        sa[key] == sb[key] for key in sb if key != "stage_seconds"),
+        "crash: summary.json differs from gwas's")
+    need(all(r["k3"] >= 1 for r in ranks) or device != "cuda",
+         f"crash: launches per rank {ranks}")
+    log(f"crash: resumed {n_proc} processes: {line}; {len(b) - 2} artifacts "
+        f"byte-identical to phase 21's gwas, all {len(cert[0])} columns "
+        f"certified; walls killed {walls['killed']:.1f} s, resumed "
+        f"{walls['resumed']:.1f} s; ranks' launches K3 {mp['k3']}, K2 "
+        f"{mp['k2']}, K7 {mp['k7']}")
+    return dict(mp, walls=walls)
+
+
+# ---------------------------------------------------------------- phase 24
+
+# (tool, its arguments, its work directory's name: prof_r5_certify and
+# prof_r5_feedgap share the synthetic table they build there)
+TOOL_RUNS = (
+    ("prof_step", ["--rows", str(1 << 20), "--iters", "10"], None),
+    ("prof_r5_certify", ["1", "--rows", "1000000", "--p", "11"], "pop"),
+    ("prof_r5_feedgap", ["1000000", "--batch", "250000"], "pop"),
+    ("bench_ingest", ["--rows", "4e6", "--samples", "16"], "ingest"),
+    ("at_scale_run", ["--rows", "1000000", "--permutations", "10", "-k",
+                      "1001"], "at_scale"),
+)
+
+
+def phase_tools(workdir, env, runs=TOOL_RUNS, device="cuda"):
+    """The five tools without a TPU kernel (phase 24), each once in a new
+    process at a reduced size (TOOL_RUNS), on `device` (bench_ingest is
+    host code): each must exit 0 and print JSON that parses; their lines
+    and walls are logged beside the card."""
+    walls = {}
+    for name, argv, work in runs:
+        cmd = [sys.executable, "-m", f"kmersgwas_tpu_torch.tools.{name}",
+               *argv]
+        if work:
+            cmd += ["--workdir", os.path.join(workdir, f"tool_{work}")]
+        if name != "bench_ingest":
+            cmd += ["--device", device]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        walls[name] = time.perf_counter() - t0
+        need(proc.returncode == 0, f"tool {name} failed:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+                 if ln.startswith("{")]
+        need(lines, f"tool {name} printed no JSON")
+        for ln in lines:
+            log(f"tool {name}: " + json.dumps(ln))
+        log(f"tool {name}: {len(lines)} JSON lines, {walls[name]:.1f} s "
+            f"({env['card']})")
+    return walls
 
 
 # ---------------------------------------------------------------- record
@@ -4158,6 +4546,9 @@ def main():
         snp = timed(phase_snps, mres, workdir)
         timed(phase_emma, mres, kin)
         ing = timed(phase_ingest, workdir, env)
+        mesh = timed(phase_mesh, mres, kin, workdir)
+        crash = timed(phase_crash_resume, ing, workdir)
+        timed(phase_tools, workdir, env)
     except PhaseError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4169,24 +4560,27 @@ def main():
     t, e = kres["times"], kres["errs"]
     # K1, K2 and K7 run on several paths: the scan (phase 3) or kinship
     # (phase 8), gwas (phase 18), K1 and K2 gwas with the SNP arm (phase
-    # 19), and reads to results (phase 21: gwas K1, K2 and K7, gwas-mp's
-    # ranks K3, K2 and K7)
+    # 19), reads to results (phase 21: gwas K1, K2 and K7, gwas-mp's
+    # ranks K3, K2 and K7), the mesh (phase 22: K1, K2, K4, K7 on its
+    # shards) and the resumed gwas-mp (phase 23: K3, K2, K7)
     rows = [("score_topw", TOPW_SOURCE, TOPW_REPLACES,
-             mres["k1"] + gw["k1"] + snp["k1"] + ing["k1"], e[0], t[0],
-             t[1]),
+             mres["k1"] + gw["k1"] + snp["k1"] + ing["k1"] + mesh["k1"],
+             e[0], t[0], t[1]),
             ("score_bmax", BMAX_SOURCE, BMAX_REPLACES,
-             mres["k2"] + gw["k2"] + snp["k2"] + ing["k2"], e[1], t[2],
-             t[3]),
+             mres["k2"] + gw["k2"] + snp["k2"] + ing["k2"] + mesh["k2"]
+             + crash["k2"], e[1], t[2], t[3]),
             ("score_tilemax", TILEMAX_SOURCE, TILEMAX_REPLACES,
-             pres["k3"] + ing["k3"], e[2], t[4], t[5]),
-            ("score_t", SCORE_T_SOURCE, SCORE_T_REPLACES, sres["k4"], e[3],
-             t[6], t[7]),
+             pres["k3"] + ing["k3"] + crash["k3"], e[2], t[4], t[5]),
+            ("score_t", SCORE_T_SOURCE, SCORE_T_REPLACES,
+             sres["k4"] + mesh["k4"], e[3], t[6], t[7]),
             ("score_rows", SCORE_ROWS_SOURCE, SCORE_ROWS_REPLACES,
              bres["k5"], e[4], t[8], t[9]),
             ("kinship_gram", KINSHIP_SOURCE, KINSHIP_REPLACES,
-             kin["k7"] + gw["k7"] + ing["k7"], 0.0, t[10], t[11]),
+             kin["k7"] + gw["k7"] + ing["k7"] + mesh["k7"] + crash["k7"],
+             0.0, t[10], t[11]),
             ("kinship_transpose", KINSHIP_SOURCE, KINSHIP_REPLACES,
-             kin["k7t"] + gw["k7t"] + ing["k7t"], 0.0, t[12], t[13]),
+             kin["k7t"] + gw["k7t"] + ing["k7t"] + mesh["k7t"]
+             + crash["k7t"], 0.0, t[12], t[13]),
             ("gen_planes", GEN_SOURCE, GEN_REPLACES, bench_res["k6"], 0.0,
              *gres["times"]),
             ("score_parity", PARITY_SOURCE, PARITY_REPLACES, k8res["k8"],

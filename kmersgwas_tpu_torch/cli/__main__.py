@@ -4,7 +4,9 @@ Port of kmersgwas_tpu/cli/__main__.py: its 17 commands with their flags,
 stdout lines and output bytes. The commands that touch the card (`gwas`,
 `gwas-mp`, `associate`, `associate-mp`, `kinship`, `kinship-mp`,
 `kinship-bed`, `associate-snps`) take `--device` (default cuda; cuda
-without a card raises). The ingest and export commands (`count`,
+without a card raises); `gwas`, `associate` and `kinship` also take
+`--devices N`, a mesh of N shards (parallel/sharding.mesh_for) whose
+output equals one device's. The ingest and export commands (`count`,
 `strand-merge`, `list-kmers`, `build-table`, `table-to-bed`,
 `filter-kmers`, `kmc-import`, `kmc-export`, `histogram`) are host code,
 as in the JAX package: the native ingest library where it builds, else
@@ -58,8 +60,9 @@ def _add_gwas(sub):
                    help="exact-LMM stage backend (host64 = float64, "
                         "device32 = packed bits + float32, both on --device)")
     p.add_argument("--devices", type=int, default=None,
-                   help="shard the scan over this many devices (not "
-                        "ported: more than 1 raises)")
+                   help="shard the kinship and the scan over this many "
+                        "devices: round-robin over the visible cards, or "
+                        "cpu shards with --device cpu")
     p.add_argument("--score_precision", default="default",
                    choices=["default", "highest"],
                    help="score GEMM precision: default = phenotypes rounded "
@@ -334,11 +337,16 @@ def _add_associate(sub):
                         "equals the exact-score top-k")
     p.add_argument("--dtable_cache", default=None,
                    help="path for the device-native packed table cache")
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard the scan over this many devices: "
+                        "round-robin over the visible cards, or cpu shards "
+                        "with --device cpu")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the scan runs (cuda raises without a card)")
 
     def run(a):
         from ..core import formats
+        from ..parallel import sharding as shard_mod
         from ..pipeline import scan
         pheno = formats.read_phenotypes(a.phenotype_file)
         res = scan.associate(a.kmers_table, pheno.accessions, pheno.values,
@@ -348,7 +356,8 @@ def _add_associate(sub):
                              first_phenotype_top=a.first_phenotype_best,
                              score_precision=a.score_precision,
                              certify_topk=a.certify_topk,
-                             dtable_cache=a.dtable_cache, device=a.device)
+                             dtable_cache=a.dtable_cache, device=a.device,
+                             mesh=shard_mod.mesh_for(a.devices, a.device))
         if res.certified is not None:
             bad = [res.names[j] for j, c in enumerate(res.certified) if not c]
             if bad:
@@ -475,18 +484,18 @@ def _add_kinship(sub):
     p.add_argument("--maf", type=float, required=True)
     p.add_argument("--batch_size", type=int, default=1 << 20)
     p.add_argument("--devices", type=int, default=None,
-                   help="shard the accumulation over this many devices "
-                        "(not ported: more than 1 raises)")
+                   help="shard the accumulation over this many devices: "
+                        "round-robin over the visible cards, or cpu shards "
+                        "with --device cpu")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the Gram runs (cuda raises without a card)")
 
     def run(a):
+        from ..parallel import sharding as shard_mod
         from ..pipeline import kinship as km
-        if a.devices and a.devices > 1:
-            raise NotImplementedError(
-                "kmersgwas_tpu_torch runs single-device kinship only")
-        K = km.kinship_from_table(a.kmers_table, maf=a.maf,
-                                  batch_size=a.batch_size, device=a.device)
+        K = km.kinship_from_table(
+            a.kmers_table, maf=a.maf, batch_size=a.batch_size,
+            device=a.device, mesh=shard_mod.mesh_for(a.devices, a.device))
         for row in K:
             sys.stdout.write("\t".join(f"{v:g}" for v in row) + "\n")
     p.set_defaults(func=run)

@@ -160,12 +160,24 @@ kinship_accumulate.launches = 0
 
 def kinship_accumulate_masked(acc: torch.Tensor, packed: torch.Tensor,
                               valid: torch.Tensor) -> torch.Tensor:
-    """acc + A^T A where rows with valid == 0 contribute nothing (plain
-    only; kmersgwas_tpu/ops/kinship.py:34-46): zeroing invalid rows
-    restores exactness under +-1, so batches may be padded to any fixed
-    shape. Returns a new tensor."""
-    return acc + _gram(unpack_bits_pm1(packed)
-                       * valid[:, None].to(torch.int8))
+    """acc += A^T A where rows with valid == 0 contribute nothing
+    (kmersgwas_tpu/ops/kinship.py:34-46), in place; returns acc. Under +-1
+    an all-zero padding row is not neutral (it adds 1 to every pair), so
+    invalid rows must be left out. On the CPU the plain version zeroes
+    them (any mask). On the card the valid rows must be a prefix of the
+    batch, as parallel/sharding.shard_batch pads shards: the kinship
+    kernels then run over that prefix (kinship_accumulate with n_rows); a
+    mask that is not a prefix raises (there is no plain Gram on the card).
+    The card's path reads the mask on the host."""
+    if packed.device.type == "cpu" and acc.device.type == "cpu":
+        acc += _gram(unpack_bits_pm1(packed) * valid[:, None].to(torch.int8))
+        return acc
+    ok = valid.cpu() != 0
+    n_rows = int(ok.sum())
+    if not bool(ok[:n_rows].all()):
+        raise ValueError("on the card the valid rows must be a prefix of "
+                         "the batch")
+    return kinship_accumulate(acc, packed, n_rows)
 
 
 def kinship_init(n_pad: int, device) -> torch.Tensor:
@@ -173,32 +185,57 @@ def kinship_init(n_pad: int, device) -> torch.Tensor:
 
 
 class KinshipAccumulator:
-    """Streaming accumulator: an int32 partial on the device, spilled into
+    """Streaming accumulator: an int32 partial on each device, spilled into
     an int64 host total before it can overflow (port of kmersgwas_tpu/ops/
-    kinship.py KinshipAccumulator)."""
+    kinship.py KinshipAccumulator and of kmersgwas_tpu/pipeline/
+    kinship.py ShardedKinshipAccumulator).
 
-    def __init__(self, n_used: int, n_pad: int, device):
+    mesh: an optional parallel/sharding.Mesh (default: one shard on
+    `device`). Each batch is cut into mesh.size contiguous row shards, as
+    sharding.shard_batch cuts it, so a shard's valid rows are a prefix of
+    it; each shard adds them into its own partial on its device
+    (kinship_accumulate over that prefix: the kinship kernels on the
+    card), with no exchange per batch. The partials meet in the host
+    total at flush, so the matrix is the same for any shard count. Every
+    partial is flushed before it could have taken SPILL_ROWS rows (the
+    count of all rows added bounds every shard's)."""
+
+    def __init__(self, n_used: int, n_pad: int, device=None, mesh=None):
         self.n_used = n_used
         self.n_pad = n_pad
+        self.shard_devices = (tuple(mesh.devices) if mesh is not None
+                              else (torch.device(device),))
         self.total = np.zeros((n_used, n_used), dtype=np.int64)
-        self.device_acc = kinship_init(n_pad, device)
+        self.device_accs = [kinship_init(n_pad, d)
+                            for d in self.shard_devices]
         self.rows_in_acc = 0
         self.n_rows = 0
+
+    @property
+    def devices(self) -> list:
+        """The partials' devices without repeats, in shard order."""
+        return list(dict.fromkeys(self.shard_devices))
 
     def add(self, packed_dev: torch.Tensor, n_rows: int | None = None) -> None:
         """Accumulate rows [0, n_rows) of a batch (default: all of it)."""
         rows = int(packed_dev.shape[0]) if n_rows is None else int(n_rows)
         if self.rows_in_acc + rows > SPILL_ROWS:
             self.flush()
-        kinship_accumulate(self.device_acc, packed_dev, rows)
+        s = -(-int(packed_dev.shape[0]) // len(self.device_accs))
+        for d, (acc, dev) in enumerate(zip(self.device_accs,
+                                           self.shard_devices)):
+            kinship_accumulate(acc, packed_dev[d * s:(d + 1) * s].to(dev),
+                               min(max(rows - d * s, 0), s))
         self.rows_in_acc += rows
         self.n_rows += rows
 
     def flush(self) -> None:
         if self.rows_in_acc:
-            part = self.device_acc.cpu().numpy().astype(np.int64)
+            part = sum(acc.cpu().numpy().astype(np.int64)
+                       for acc in self.device_accs)
             self.total += part[: self.n_used, : self.n_used]
-            self.device_acc.zero_()
+            for acc in self.device_accs:
+                acc.zero_()
             self.rows_in_acc = 0
 
     def finalize(self) -> np.ndarray:

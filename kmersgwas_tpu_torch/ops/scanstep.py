@@ -18,7 +18,11 @@ already <= thresh); otherwise it recomputes the full scores with the
 score_bmax kernel and runs the exact wide merge. Exact by construction,
 with the reference heap's tie rules: only a strictly greater score
 displaces, and the earliest row wins among equals (the concatenation order
-state < buffer < batch, then a stable sort).
+state < buffer < batch, then a stable sort). `scan_step_buffered`
+(:137-230) carries the same state with no candidate kernel: the full
+scores and block maxima every batch (score_bmax), the batch's top cand_c
+appended when that is exact, the wide merge otherwise;
+`scan_step_buffered_multi` runs it over a stack of batches.
 
 Each `lax.cond` of the reference is a host branch here, decided from
 device flags that one small device-to-host copy per step brings back; a
@@ -234,37 +238,19 @@ def _tilemax_candidates(state: BufferedTopKState, packed, popcnt,
     return v, g, okc
 
 
-def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
-                      row_hi, y_padded, y_sum, *, n_used: int,
-                      min_count: int, cand_k: int, tile_rows: int,
-                      cand_w: int | None = None, cand_c: int | None = None,
-                      cand_c2: int | None = None, cand_q: int | None = None,
-                      precision: str = "default", col_group: int = 128,
-                      block: int = 16, counts: dict | None = None
-                      ) -> BufferedTopKState:
-    """One streamed batch -> the buffered top-k state, updated in place.
-
-    packed (R, W32) int32 planes, popcnt (R,) f32 (0 marks padding rows),
-    row_lo/row_hi (R,) int32 encoded row ids, y_padded (N_pad, P) f32,
-    y_sum (P,) f32, all on one device. R % tile_rows == 0; the buffer
-    capacity must be a multiple of the candidate width.
-
-    cand_w: `cand_w` mode with W = cand_w candidates per column. None
-    selects `cand_c` mode: the top-3 of the min(cand_c, R/tile_rows)
-    hottest tiles, of which only the cand_c2 hottest contribute their 2nd
-    and 3rd lanes (default: all), so c + 2*c2 candidates per column.
-    cand_q: narrow append width (used when it is < the width and divides
-    the capacity): when the (q+1)-th candidate is already <= thresh only
-    the top q are kept — the rest can never strictly beat the final k-th.
-    col_group: the guards and the append/fallback decision run per group of
-    <= col_group columns, so one hot column group falls back alone (the
-    groups share buf_n; a fallen-back group's slot is left at -inf).
-    counts: optional dict; the step adds 1 to "narrow", "wide" or
-    "fallback" (any group fell back), and to "flush" when the buffer was
-    merged before the append."""
-    cap = state.buf_v.shape[1]
+def compact_candidates(state: BufferedTopKState, packed, popcnt,
+                       y_padded, y_sum, *, n_used: int, min_count: int,
+                       tile_rows: int, cand_w: int | None = None,
+                       cand_c: int | None = None,
+                       cand_c2: int | None = None, cand_q: int | None = None,
+                       precision: str = "default"):
+    """The first half of scan_step_compact: launch the candidate kernel
+    and the guards -> (v, g, q, flags), all on the batch's device; flags
+    (2, P) bool stacks okc (every hot lane is among the candidates) and
+    the narrow test (the (q+1)-th candidate is cold; okc where there is
+    no q). Nothing here waits for the device, so a mesh can queue every
+    shard's kernel before it reads any shard's flags."""
     rows = packed.shape[0]
-    p = state.scores.shape[0]
     assert rows % tile_rows == 0
     if cand_w is not None:
         v, g, okc = score_ops.score_batch_t_topw(
@@ -280,11 +266,26 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
             min_count=min_count, tile_rows=tile_rows, cand_c=cand_c,
             cand_c2=cand_c2, precision=precision)
     width = v.shape[1]
+    cap = state.buf_v.shape[1]
     assert cap % width == 0
     q = cand_q if cand_q and cand_q < width and cap % cand_q == 0 else None
     nar_c = v[:, q] <= state.thresh if q else okc
-    flags = torch.stack([okc, nar_c]).cpu()           # the step's one sync
-    okc_h, nar_h = flags[0].tolist(), flags[1].tolist()
+    return v, g, q, torch.stack([okc, nar_c])
+
+
+def compact_apply(state: BufferedTopKState, cands, flags_host, packed,
+                  popcnt, row_lo, row_hi, y_padded, y_sum, *, n_used: int,
+                  min_count: int, cand_k: int, precision: str = "default",
+                  col_group: int = 128, block: int = 16,
+                  counts: dict | None = None) -> BufferedTopKState:
+    """The second half of scan_step_compact: given compact_candidates'
+    (v, g, q, flags) and the flags on the host, append or fall back;
+    updates `state` in place and returns it."""
+    v, g, q, _ = cands
+    cap = state.buf_v.shape[1]
+    p = state.scores.shape[0]
+    width = v.shape[1]
+    okc_h, nar_h = flags_host[0].tolist(), flags_host[1].tolist()
 
     groups = [(g0, min(g0 + col_group, p)) for g0 in range(0, p, col_group)]
     qual = [all(okc_h[g0:g1]) for g0, g1 in groups]
@@ -336,6 +337,107 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
     state.buf_n = n0 + incoming
     _count(counts, "narrow" if all(qual) and narrow
            else "wide" if all(qual) else "fallback")
+    return state
+
+
+def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
+                      row_hi, y_padded, y_sum, *, n_used: int,
+                      min_count: int, cand_k: int, tile_rows: int,
+                      cand_w: int | None = None, cand_c: int | None = None,
+                      cand_c2: int | None = None, cand_q: int | None = None,
+                      precision: str = "default", col_group: int = 128,
+                      block: int = 16, counts: dict | None = None
+                      ) -> BufferedTopKState:
+    """One streamed batch -> the buffered top-k state, updated in place.
+
+    packed (R, W32) int32 planes, popcnt (R,) f32 (0 marks padding rows),
+    row_lo/row_hi (R,) int32 encoded row ids, y_padded (N_pad, P) f32,
+    y_sum (P,) f32, all on one device. R % tile_rows == 0; the buffer
+    capacity must be a multiple of the candidate width.
+
+    cand_w: `cand_w` mode with W = cand_w candidates per column. None
+    selects `cand_c` mode: the top-3 of the min(cand_c, R/tile_rows)
+    hottest tiles, of which only the cand_c2 hottest contribute their 2nd
+    and 3rd lanes (default: all), so c + 2*c2 candidates per column.
+    cand_q: narrow append width (used when it is < the width and divides
+    the capacity): when the (q+1)-th candidate is already <= thresh only
+    the top q are kept — the rest can never strictly beat the final k-th.
+    col_group: the guards and the append/fallback decision run per group of
+    <= col_group columns, so one hot column group falls back alone (the
+    groups share buf_n; a fallen-back group's slot is left at -inf).
+    counts: optional dict; the step adds 1 to "narrow", "wide" or
+    "fallback" (any group fell back), and to "flush" when the buffer was
+    merged before the append. The step is compact_candidates, one copy of
+    its flags to the host (the step's one sync), then compact_apply."""
+    cands = compact_candidates(
+        state, packed, popcnt, y_padded, y_sum, n_used=n_used,
+        min_count=min_count, tile_rows=tile_rows, cand_w=cand_w,
+        cand_c=cand_c, cand_c2=cand_c2, cand_q=cand_q, precision=precision)
+    return compact_apply(
+        state, cands, cands[3].cpu(), packed, popcnt, row_lo, row_hi,
+        y_padded, y_sum, n_used=n_used, min_count=min_count, cand_k=cand_k,
+        precision=precision, col_group=col_group, block=block, counts=counts)
+
+
+def scan_step_buffered(state: BufferedTopKState, packed, popcnt, row_lo,
+                       row_hi, y_padded, y_sum, *, n_used: int,
+                       min_count: int, block: int = 16, cand_c: int = 512,
+                       cand_k: int = 2048, precision: str = "default",
+                       counts: dict | None = None) -> BufferedTopKState:
+    """One streamed batch -> the buffered top-k state, updated in place
+    (port of kmersgwas_tpu/ops/scanstep.py:176-230). Arguments as
+    scan_step; the buffer capacity must be a multiple of cand_c, and
+    cand_c <= R.
+
+    The full scores and their block maxima come from score_batch_t_bmax
+    (the score_bmax kernel on the card; it writes the contiguous 16-lane
+    block maxima that top_k_from_bmax reads, so the reference's
+    `_scores_and_bmax`, which builds strided ones for Mosaic, has no
+    counterpart here). The batch's top cand_c is appended to the buffer
+    when that is exact in EVERY column (the extraction proved its set and
+    its cand_c-th value is below thresh: nothing left out can ever beat
+    the k-th score) and the buffer has room; otherwise the exact wide
+    merge of state + buffer + batch runs (`_flush_merge`) and thresh
+    rises to the new k-th score. The decision is one flag brought to the
+    host. counts: optional dict; the step adds 1 to "wide" (appended) or
+    "fallback" (merged)."""
+    cap = state.buf_v.shape[1]
+    assert cap % cand_c == 0 and cand_c <= packed.shape[0]
+    sc, bmax = score_ops.score_batch_t_bmax(
+        packed, popcnt, y_padded, y_sum, n_used=n_used,
+        min_count=min_count, block=block, precision=precision)
+    v, i, v_exact = topk_ops.top_k_from_bmax(sc, bmax, cand_c)
+    can_buffer = state.buf_n + cand_c <= cap and bool(
+        (v_exact.all() & (v[:, -1] < state.thresh).all()).item())
+    if can_buffer:
+        il = i.long().clamp(max=row_lo.shape[0] - 1)  # -inf pad lanes
+        n0 = state.buf_n
+        state.buf_v[:, n0:n0 + cand_c] = v
+        state.buf_lo[:, n0:n0 + cand_c] = row_lo[il]
+        state.buf_hi[:, n0:n0 + cand_c] = row_hi[il]
+        state.buf_n = n0 + cand_c
+        _count(counts, "wide")
+        return state
+    state.scores, state.row_lo, state.row_hi = _flush_merge(
+        state.scores, state.row_lo, state.row_hi, state.buf_v,
+        state.buf_lo, state.buf_hi, sc, bmax, row_lo, row_hi, cand_k, block)
+    _clear_buffer(state)
+    state.buf_n = 0
+    state.thresh = state.scores[:, -1].clone()
+    _count(counts, "fallback")
+    return state
+
+
+def scan_step_buffered_multi(state: BufferedTopKState, packed, popcnt,
+                             row_lo, row_hi, y_padded, y_sum, **kw
+                             ) -> BufferedTopKState:
+    """B batches in one call (port of kmersgwas_tpu/ops/scanstep.py:
+    665-690): packed (B, R, W32), popcnt/row_lo/row_hi (B, R); the same
+    state as B sequential scan_step_buffered calls, which is what it
+    runs. Keywords as scan_step_buffered."""
+    for b in range(packed.shape[0]):
+        scan_step_buffered(state, packed[b], popcnt[b], row_lo[b],
+                           row_hi[b], y_padded, y_sum, **kw)
     return state
 
 

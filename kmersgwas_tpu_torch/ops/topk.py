@@ -27,6 +27,18 @@ class TopKState(NamedTuple):
     row_hi: torch.Tensor   # (P, K) int32
 
 
+def init_state(n_phenotypes: int, k: int, device="cpu") -> TopKState:
+    """An empty (P, K) state on `device`: -inf scores, row 0 (copy of
+    kmersgwas_tpu.ops.topk.init_state)."""
+    return TopKState(
+        scores=torch.full((n_phenotypes, k), float("-inf"),
+                          dtype=torch.float32, device=device),
+        row_lo=torch.zeros((n_phenotypes, k), dtype=torch.int32,
+                           device=device),
+        row_hi=torch.zeros((n_phenotypes, k), dtype=torch.int32,
+                           device=device))
+
+
 def encode_rows(rows: np.ndarray):
     """Split NON-NEGATIVE row ids into (lo, hi) int32 halves (copy of
     kmersgwas_tpu.ops.topk.encode_rows)."""
@@ -121,6 +133,25 @@ def top_k_from_bmax(sc: torch.Tensor, bmax: torch.Tensor, k: int):
     exact = (v[:, -1] > vv[:, k]) & (v[:, -1] > m_next)
     v, idx = sort_desc_index_asc(v, idx)
     return v, idx, exact
+
+
+def update(state: TopKState, batch_scores: torch.Tensor,
+           row_lo: torch.Tensor, row_hi: torch.Tensor) -> TopKState:
+    """Merge a batch: batch_scores (R, P), row_lo/row_hi (R,) -> a new state
+    (port of kmersgwas_tpu.ops.topk.update). The state's entries come
+    first in the stable merge, so they win ties."""
+    k = state.scores.shape[1]
+    sc = batch_scores.T                                   # (P, R)
+    p, r = sc.shape
+    if r > k:
+        v, i = blocked_top_k(sc.contiguous(), k)          # (P, K)
+        blo, bhi = row_lo[i], row_hi[i]
+    else:
+        v, blo, bhi = sc, row_lo.expand(p, r), row_hi.expand(p, r)
+    nv, j = top_k(torch.cat([state.scores, v], dim=1), k)
+    return TopKState(scores=nv,
+                     row_lo=torch.cat([state.row_lo, blo], dim=1).gather(1, j),
+                     row_hi=torch.cat([state.row_hi, bhi], dim=1).gather(1, j))
 
 
 def finalize(state: TopKState):

@@ -21,6 +21,7 @@ tested-count sum and the kinship totals. Two processes may share one card.
 """
 from __future__ import annotations
 
+import atexit
 import math
 import os
 from collections import deque
@@ -53,11 +54,20 @@ def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
     """Join the gloo process group at tcp://<coordinator_address> (host:port
-    of process 0); a no-op for a single process."""
+    of process 0); a no-op for a single process. The group is left at
+    exit, before the interpreter's teardown: a rank that exited with it
+    still up was sometimes aborted there by its gloo threads
+    (std::terminate, exit code -6) after its work had ended."""
     if num_processes is None or num_processes <= 1:
         return
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id)
+    atexit.register(_leave_process_group)
+
+
+def _leave_process_group() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 # copy of kmersgwas_tpu.parallel.multihost._bisect_col0_right

@@ -1,19 +1,314 @@
-"""Partitioning of the k-mer axis across processes and the exact merge of
-their top-k states (port of the multi-process half of kmersgwas_tpu/
-parallel/sharding.py).
+"""Scaling the scan and kinship over devices and processes (port of
+kmersgwas_tpu/parallel/sharding.py).
 
-Each process owns one device and streams one contiguous range of the
-k-mer space (`host_range_of_kmer_space`); its top-k state never leaves it
-until finalize, where every process gathers every state over
-`torch.distributed` (gloo, CPU tensors) and runs the same exact merge.
+The k-mer axis (the table's rows) is the sharding axis; the samples axis
+is replicated everywhere.
+
+  * one process, several devices: a `Mesh` lists one device per shard
+    (entries may repeat a device, so D shards can share one card or the
+    CPU). A batch is cut into D contiguous row shards; each shard carries
+    its OWN buffered top-k state and runs the single-device step on its
+    device, with no exchange per step. The exact global top-k is merged
+    on the host at finalize (selection under the total order (-score, row
+    asc) is mergeable), so the result equals the single-device run's.
+    Kinship keeps one int32 partial per shard, summed into the host int64
+    total at flush. Launches are queued shard after shard: they overlap on
+    distinct cards and run one after another on a shared one.
+  * several processes: each owns one device and streams one contiguous
+    range of the k-mer space (`host_range_of_kmer_space`); its top-k state
+    never leaves it until finalize, where every process gathers every
+    state over `torch.distributed` (gloo, CPU tensors) and runs the same
+    exact merge (parallel/multihost.py).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops import kinship as kin_ops
+from ..ops import scanstep as ss
+from ..ops import score as score_ops
 from ..ops import topk as topk_ops
+from ..utils import require_device
+
+AXIS = "kmers"
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A one-axis ("kmers") device mesh: shard d runs on devices[d]."""
+    devices: tuple
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def distinct(self) -> list:
+        """The mesh's devices without repeats, in shard order."""
+        return list(dict.fromkeys(self.devices))
+
+
+def make_mesh(devices=None) -> Mesh:
+    """A mesh over `devices` (torch.device or strings; repeats allowed, all
+    of one kind), by default every visible card; raises when a card is
+    asked for (or defaulted to) and none is visible."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh() needs a card "
+                               "(torch.cuda.is_available() is False); pass "
+                               "devices explicitly for a CPU mesh")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = []
+    for d in devices:
+        d = require_device(d)
+        devs.append(torch.device("cuda", 0) if d.type == "cuda"
+                    and d.index is None else d)
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError("a mesh's devices must all be of one kind, not "
+                         f"{sorted({d.type for d in devs})}")
+    return Mesh(tuple(devs))
+
+
+def mesh_for(n_devices: int | None, device) -> Mesh | None:
+    """The CLI's `--devices N`: N shards round-robin over the visible cards
+    (cuda:{i % count}), or N cpu shards when `device` is the CPU; None for
+    N <= 1 (the single-device path)."""
+    if not n_devices or n_devices <= 1:
+        return None
+    dev = require_device(device)
+    if dev.type == "cpu":
+        return make_mesh(["cpu"] * n_devices)
+    count = torch.cuda.device_count()
+    return make_mesh([f"cuda:{i % count}" for i in range(n_devices)])
+
+
+def home_device(mesh: Mesh | None, device) -> tuple:
+    """(the device a driver stages its batches on, the mesh it runs):
+    the mesh's first shard's device, which must be of the kind `device`
+    names; without a mesh, a one-shard mesh over `device`."""
+    dev = require_device(device)
+    if mesh is None:
+        mesh = make_mesh([dev])
+    if mesh.devices[0].type != dev.type:
+        raise ValueError(f"device {device!r} and a mesh over "
+                         f"{mesh.devices[0].type} devices disagree")
+    return mesh.devices[0], mesh
+
+
+def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype == np.uint32:                   # planes ride as int32 bits
+        a = a.view(np.int32)
+    if not a.flags.writeable or not a.flags.c_contiguous:
+        a = np.array(a)
+    return torch.from_numpy(a)
+
+
+def shard_batch(mesh: Mesh, arrays, pad_value=0) -> list:
+    """Cut each array (tensor or numpy; uint32 planes become int32) into
+    mesh.size contiguous row shards: shard d holds rows [d*R/D, (d+1)*R/D)
+    of the array padded at its end with `pad_value` to a multiple of D.
+    -> one list of D tensors per array, shard d on mesh.devices[d]. A
+    shard on the array's own device is a view (no copy); the padding, when
+    needed, is one copy."""
+    d = mesh.size
+    out = []
+    for a in arrays:
+        t = _tensor(a)
+        r = t.shape[0]
+        rp = -(-r // d) * d
+        if rp != r:
+            t = torch.cat([t, t.new_full((rp - r, *t.shape[1:]), pad_value)])
+        s = rp // d
+        out.append([t[i * s:(i + 1) * s].to(dev)
+                    for i, dev in enumerate(mesh.devices)])
+    return out
+
+
+def replicate(mesh: Mesh, *arrays) -> list:
+    """Each array on every shard's device, placed once per distinct device
+    (shards sharing a device share the tensor). -> one list of D tensors
+    per array."""
+    out = []
+    for a in arrays:
+        t = _tensor(a)
+        placed = {dev: t.to(dev) for dev in mesh.distinct()}
+        out.append([placed[dev] for dev in mesh.devices])
+    return out
+
+
+def _to(a, dtype, device) -> torch.Tensor:
+    return _tensor(a).to(device=device, dtype=dtype).contiguous()
+
+
+def init_sharded_buffered_state(mesh: Mesh, n_phenotypes: int, k: int,
+                                buf_cap: int, seed_state=None) -> list:
+    """One empty BufferedTopKState per shard, on its device. Each shard
+    carries its own top-k over its rows; the states meet only at
+    finalize_sharded_buffered.
+
+    seed_state: an optional resumed TopKState (P, K) (tensors or numpy),
+    put into shard 0 ONLY (the other shards start empty), so the final
+    cross-shard merge stays exact without deduplication."""
+    states = [ss.init_buffered_state(n_phenotypes, k, buf_cap, dev)
+              for dev in mesh.devices]
+    if seed_state is not None:
+        st, dev = states[0], mesh.devices[0]
+        st.scores = _to(seed_state.scores, torch.float32, dev)
+        st.row_lo = _to(seed_state.row_lo, torch.int32, dev)
+        st.row_hi = _to(seed_state.row_hi, torch.int32, dev)
+        st.thresh = st.scores[:, -1].clone()
+    return states
+
+
+def build_sharded_scan_step(mesh: Mesh, *, n_used: int, min_count: int,
+                            k: int, precision: str = "default"):
+    """The legacy plain step over a mesh -> step(state, packed, popcnt,
+    row_lo, row_hi, yp, ysum) -> a new TopKState.
+
+    state: a TopKState (P, K) on mesh.devices[0] (the replicated state of
+    the reference, kmersgwas_tpu/parallel/sharding.py:49-87, of which
+    every copy is the same, kept once); packed ... row_hi: shard_batch's
+    lists; yp, ysum: replicate's. Each shard scores its rows (the score_t
+    kernel on the card), MAC failures and padding rows (popcnt 0) at
+    -inf, and keeps its top-k; the shards' candidates, in shard order,
+    then merge into the state under the stable top-k, so the earliest row
+    wins ties."""
+    def step(state, packed, popcnt, row_lo, row_hi, yp, ysum):
+        home = state.scores.device
+        vs, los, his = [state.scores], [state.row_lo], [state.row_hi]
+        for d in range(mesh.size):
+            sc = score_ops.score_batch_t(packed[d], popcnt[d], yp[d],
+                                         ysum[d], n_used=n_used,
+                                         min_count=min_count,
+                                         precision=precision)
+            n1 = popcnt[d][None, :]
+            ok = (n1 >= min_count) & ((n_used - n1) >= min_count) & (n1 > 0)
+            sc = torch.where(ok, sc, float("-inf"))
+            v, i = topk_ops.blocked_top_k(sc, min(k, sc.shape[1]))
+            vs.append(v.to(home))
+            los.append(row_lo[d][i].to(home))
+            his.append(row_hi[d][i].to(home))
+        nv, j = topk_ops.top_k(torch.cat(vs, dim=1), k)
+        return topk_ops.TopKState(nv, torch.cat(los, dim=1).gather(1, j),
+                                  torch.cat(his, dim=1).gather(1, j))
+    return step
+
+
+def build_sharded_scan_step_buffered(mesh: Mesh, *, n_used: int,
+                                     min_count: int, block: int = 16,
+                                     cand_c: int = 512, cand_k: int = 2048,
+                                     precision: str = "default",
+                                     counts: dict | None = None):
+    """ops/scanstep.scan_step_buffered on every shard -> step(states,
+    packed, popcnt, row_lo, row_hi, yp, ysum) -> states (updated in
+    place). states: init_sharded_buffered_state's; the batch: shard_batch's
+    lists; yp, ysum: replicate's. No exchange per step; counts: summed
+    over shards."""
+    def step(states, packed, popcnt, row_lo, row_hi, yp, ysum):
+        for d, st in enumerate(states):
+            ss.scan_step_buffered(
+                st, packed[d], popcnt[d], row_lo[d], row_hi[d], yp[d],
+                ysum[d], n_used=n_used, min_count=min_count, block=block,
+                cand_c=cand_c, cand_k=cand_k, precision=precision,
+                counts=counts)
+        return states
+    return step
+
+
+def build_sharded_scan_step_compact(mesh: Mesh, *, n_used: int,
+                                    min_count: int, cand_k: int,
+                                    tile_rows: int, cand_w: int | None = None,
+                                    cand_c: int | None = None,
+                                    cand_c2: int | None = None,
+                                    cand_q: int | None = None,
+                                    precision: str = "default",
+                                    col_group: int = 128, block: int = 16,
+                                    counts: dict | None = None):
+    """THE production multi-device step: ops/scanstep.scan_step_compact on
+    every shard -> step(states, packed, popcnt, row_lo, row_hi, yp, ysum)
+    -> states (updated in place); arguments as
+    build_sharded_scan_step_buffered. Every shard's candidate kernel is
+    queued before any shard's flags are read, so shards on distinct cards
+    overlap; then each shard appends or falls back on its own. counts:
+    summed over shards."""
+    def step(states, packed, popcnt, row_lo, row_hi, yp, ysum):
+        cands = [ss.compact_candidates(
+            st, packed[d], popcnt[d], yp[d], ysum[d], n_used=n_used,
+            min_count=min_count, tile_rows=tile_rows, cand_w=cand_w,
+            cand_c=cand_c, cand_c2=cand_c2, cand_q=cand_q,
+            precision=precision) for d, st in enumerate(states)]
+        for d, (st, c) in enumerate(zip(states, cands)):
+            ss.compact_apply(
+                st, c, c[3].cpu(), packed[d], popcnt[d], row_lo[d],
+                row_hi[d], yp[d], ysum[d], n_used=n_used,
+                min_count=min_count, cand_k=cand_k, precision=precision,
+                col_group=col_group, block=block, counts=counts)
+        return states
+    return step
+
+
+def _candidates(state) -> list:
+    """A BufferedTopKState's carried top-k and buffer side by side: the
+    (P, K + C) score, row_lo and row_hi planes, on the host."""
+    return [torch.cat([a, b], dim=1).cpu().numpy() for a, b in (
+        (state.scores, state.buf_v), (state.row_lo, state.buf_lo),
+        (state.row_hi, state.buf_hi))]
+
+
+def finalize_sharded_buffered(states) -> list:
+    """One process's per-shard states -> the exact global per-phenotype
+    top-k: every shard's carried top-k and buffer, merged under (-score,
+    row asc). Returns per phenotype (scores f64 desc, rows int64), -inf
+    dropped, as ops/topk.finalize does; one shard's state is flushed and
+    finalized on its device. (The multi-process form of this gather is
+    finalize_distributed.)"""
+    if len(states) == 1:
+        return topk_ops.finalize(ss.flush_buffered(states[0]))
+    k = states[0].scores.shape[1]
+    parts = zip(*(_candidates(st) for st in states))
+    return _merge_candidates(*(np.stack(x, axis=1) for x in parts), k)
+
+
+def build_sharded_kinship_accumulate(mesh: Mesh):
+    """-> accumulate(accs, packed, valid) -> accs: accs one (N_pad, N_pad)
+    int32 partial per shard on its device, packed shard_batch's planes,
+    valid one mask per shard (on the host or the shard's device). Each
+    shard adds its valid rows' A^T A into its partial in place
+    (ops/kinship.kinship_accumulate_masked: the plain version on the CPU,
+    the kinship kernels over the valid prefix on the card); the caller
+    sums the partials on the host, as ops/kinship.KinshipAccumulator does
+    at flush. Reference semantics:
+    src/kmers_multiple_databases.cpp:418-438."""
+    def accumulate(accs, packed, valid):
+        return [kin_ops.kinship_accumulate_masked(acc, pk, v)
+                for acc, pk, v in zip(accs, packed, valid)]
+    return accumulate
+
+
+def build_sharded_kinship_step(mesh: Mesh):
+    """-> step(acc, packed) -> acc + the A^T A of every shard's rows: acc
+    (N_pad, N_pad) int32 on mesh.devices[0] (the reference's replicated
+    accumulator, kept once), packed shard_batch's planes. Every row of
+    every shard counts: all-zero padding rows are NOT neutral under +-1,
+    so shards must carry exact rows (the kinship kernels on the card)."""
+    def step(acc, packed):
+        out = acc.clone()
+        for pk in packed:
+            if pk.device == out.device:
+                kin_ops.kinship_accumulate(out, pk)
+            else:
+                out += kin_ops.kinship_accumulate(kin_ops.kinship_init(
+                    out.shape[0], pk.device), pk).to(out.device)
+        return out
+    return step
 
 
 def world() -> tuple[int, int]:
@@ -86,9 +381,7 @@ def finalize_distributed(state) -> list:
     Returns per phenotype (scores f64 desc, rows int64), -inf dropped.
     Every process must call this."""
     k = state.scores.shape[1]
-    parts = [torch.cat([a, b], dim=1).cpu().numpy() for a, b in (
-        (state.scores, state.buf_v), (state.row_lo, state.buf_lo),
-        (state.row_hi, state.buf_hi))]
     n_proc, _ = world()
-    parts = [all_gather_np(x) if n_proc > 1 else x[None] for x in parts]
+    parts = [all_gather_np(x) if n_proc > 1 else x[None]
+             for x in _candidates(state)]
     return _merge_candidates(*(x.transpose(1, 0, 2) for x in parts), k)

@@ -13,7 +13,9 @@ kmersgwas_tpu/pipeline/gwas.py; the reference's kmers_gwas.py:50-274).
 
 Where each stage runs: kinship (K7, or from the SNP bed with
 `kinship_snps`), the scan (K1, K2), the exact LMM and the SNP arm on
-`cfg.device`; stage 3 in float64 on the host CPU, where the JAX package
+`cfg.device` (the kinship and the scan sharded over `cfg.n_devices`
+shards of a parallel/sharding mesh when it is > 1); stage 3 in float64 on
+the host CPU, where the JAX package
 pins it too (stats/transform.py says why). "cuda" without a card raises;
 no stage moves to the CPU when the card is missing or a kernel fails.
 
@@ -26,6 +28,7 @@ process 0 broadcast to all, and stages 5-6 on process 0 through the same
 from __future__ import annotations
 
 import contextlib
+import functools
 import gzip
 import json
 import math
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core import codec, formats
+from ..parallel import sharding as shard_mod
 from ..snps import kinship as snp_kinship
 from ..stats import lmm as lmm_mod
 from ..stats import transform as transform_mod
@@ -88,7 +92,9 @@ class GWASConfig:
     remove_intermediates: bool = True   # reference default: delete permutation
                                         # PLINK artifacts + gzip assoc.txt
                                         # (kmers_gwas.py:259-271)
-    n_devices: int | None = None        # more than 1 raises (one device)
+    n_devices: int | None = None        # >1: shard the scan AND kinship
+                                        # over a device mesh of this many
+                                        # shards (sharding.mesh_for)
     checkpoint_base: str | None = None  # base path for resumable kinship and
                                         # scan checkpoints (<base>.kin,
                                         # <base>.scan)
@@ -125,12 +131,6 @@ def _persist_kinship(cfg: GWASConfig, out: Path, K_full, log) -> None:
         kinship_mod.write_kinship(alt, K_full)
         log(f"kinship cache beside the table failed ({e}); wrote {alt} — "
             "pass it via --kinship on reruns")
-
-
-def _refuse_unported(cfg: GWASConfig) -> None:
-    if cfg.n_devices and cfg.n_devices > 1:
-        raise NotImplementedError(
-            "kmersgwas_tpu_torch runs single-device gwas only")
 
 
 def _stage_log(dev: torch.device):
@@ -235,13 +235,16 @@ def _prepare(cfg: GWASConfig, dev: torch.device, out: Path, log, stage,
 
 
 def run_gwas(cfg: GWASConfig) -> GWASResult:
-    _refuse_unported(cfg)
     dev = require_device(cfg.device)
+    # the kinship and the scan shard over the same mesh
+    # (kmersgwas_tpu/pipeline/gwas.py:183-187, :264-268)
+    mesh = shard_mod.mesh_for(cfg.n_devices, dev)
     out = Path(cfg.outdir)
     out.mkdir(parents=True, exist_ok=True)
     log_lines, stage_seconds, log, stage = _stage_log(dev)
     used, y, K, tr = _prepare(
-        cfg, dev, out, log, stage, kinship_mod.kinship_from_table,
+        cfg, dev, out, log, stage,
+        functools.partial(kinship_mod.kinship_from_table, mesh=mesh),
         lambda y, K: transform_mod.transform_and_permute(
             y, K, cfg.n_permutations, seed=cfg.seed))
     n = len(used)
@@ -282,7 +285,7 @@ def run_gwas(cfg: GWASConfig) -> GWASResult:
             dtable_cache=cfg.dtable_cache,
             first_phenotype_top=cfg.n_extra_phenotype_kmers,
             score_precision=cfg.score_precision,
-            certify_topk=cfg.certify_topk,
+            certify_topk=cfg.certify_topk, mesh=mesh,
             checkpoint_path=(cfg.checkpoint_base + ".scan"
                              if cfg.checkpoint_base else None),
             checkpoint_every=cfg.checkpoint_every)
@@ -516,11 +519,9 @@ def run_distributed_gwas(cfg: GWASConfig):
     options raise ValueError, as in the JAX package."""
     from ..core.table import KmersTableReader
     from ..parallel import multihost
-    from ..parallel import sharding as shard_mod
 
     if cfg.run_snps or cfg.kinship_snps or not cfg.run_kmers:
         raise ValueError("the SNP arm is single-process only; use run_gwas")
-    _refuse_unported(cfg)
     dev = require_device(cfg.device)
     n_proc, pid = shard_mod.world()
     out = Path(cfg.outdir)

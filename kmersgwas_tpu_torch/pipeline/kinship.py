@@ -7,8 +7,11 @@ Streams MAC-filtered table batches into the exact +-1 Gram accumulator
 used, diagonal 1. On the card every batch goes through the kinship_gram
 kernel; on the CPU the same driver runs its plain version.
 
-The multi-device `mesh=` path (ShardedKinshipAccumulator) is not ported:
-passing a mesh raises. The multi-process driver is
+With `mesh=` (parallel/sharding.Mesh) each batch is cut into row shards,
+each accumulated into its own int32 partial on its device with no
+exchange per batch (ops/kinship.KinshipAccumulator); the partials meet in
+the host int64 total at flush, so the matrix is bit-identical to the
+single-device one for any shard count. The multi-process driver is
 parallel/multihost.run_distributed_kinship.
 """
 from __future__ import annotations
@@ -21,7 +24,8 @@ import numpy as np
 
 from ..core.table import KmersTableReader
 from ..ops.kinship import KinshipAccumulator
-from ..utils import drain, require_device, step_event
+from ..parallel import sharding as shard_mod
+from ..utils import drain, step_event
 from . import checkpoint as ckpt
 from . import feed as feed_mod
 
@@ -61,7 +65,7 @@ def accumulate_stream(acc: KinshipAccumulator, items, dev, *, batch_size: int,
     for r, planes, pos_after in feed_mod.device_planes(
             items, dev, batch_size, w32, depth=_PREFETCH):
         acc.add(planes, r)
-        inflight.append(step_event(dev))
+        inflight.append([step_event(d) for d in acc.devices])
         if len(inflight) > _INFLIGHT:
             drain(inflight.popleft())
         batch_i += 1
@@ -90,15 +94,17 @@ def kinship_from_table(table_base: str, *, device, maf: float = 0.05,
     n_used and accession subset match this call's filter; a stale cache is
     left alone and the raw table is streamed instead, so the accumulated
     row set is always the raw route's. Checkpoints hold exact positions,
-    tagged with the row numbering they index."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "kmersgwas_tpu_torch runs single-device kinship only")
-    dev = require_device(device)
+    tagged with the row numbering they index, and are the same with or
+    without a mesh. mesh: an optional parallel/sharding.Mesh (default:
+    one shard on `device`); every batch is cut into its row shards, each
+    accumulated into its own partial (ops/kinship.KinshipAccumulator).
+    Batches are staged on the first shard's device, whose kind `device`
+    must name."""
+    dev, mesh = shard_mod.home_device(mesh, device)
     reader = KmersTableReader(table_base, names_to_use=names_to_use)
     min_count = math.ceil(reader.n_used * maf)
     acc = KinshipAccumulator(n_used=reader.n_used, n_pad=reader.w32 * 32,
-                             device=dev)
+                             mesh=mesh)
     dt = None
     if dtable_cache:
         from ..core import dtable as dt_mod

@@ -6,7 +6,9 @@ End-to-end equivalent of the `associate_kmers` binary
 table (or its .dtable cache) to the card, where one scan step per batch
 (ops/scanstep.scan_step_compact, `cand_w` mode) scores every phenotype
 column and keeps the per-column top-k; the winners' rows are then fetched
-by random access into the table, with no second pass.
+by random access into the table, with no second pass. With a device mesh
+(parallel/sharding.py) every batch is cut into row shards, each with its
+own state and step, merged exactly at finalize.
 
 Winner naming matches the reference bim convention: `<kmer>_<rank>` where
 rank 1 = best score, and bed rows are written in table-row order.
@@ -24,7 +26,6 @@ from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from .. import native
 from ..core import codec, formats
@@ -34,7 +35,8 @@ from ..ops import _cuda
 from ..ops import scanstep as ss
 from ..ops import score as score_ops
 from ..ops import topk as topk_ops
-from ..utils import StageTimer, drain, require_device, step_event
+from ..parallel import sharding as shard_mod
+from ..utils import StageTimer, drain, step_event
 from . import checkpoint as ckpt
 from . import feed as feed_mod
 
@@ -52,6 +54,21 @@ CAND_Q = 64
 # scan of the JAX package was OOM-killed without this bound)
 _INFLIGHT = 4
 _PREFETCH = 2
+
+
+# copy of kmersgwas_tpu.pipeline.scan._merged_to_topk
+def _merged_to_topk(per_pheno, p: int, k: int):
+    """Merged per-phenotype (scores, rows) lists -> a padded TopKState
+    (host arrays) usable as a resume seed / checkpoint payload."""
+    scores = np.full((p, k), -np.inf, np.float32)
+    rows = np.zeros((p, k), np.int64)
+    for j, (v, r) in enumerate(per_pheno):
+        n = min(k, len(v))
+        scores[j, :n] = v[:n]
+        rows[j, :n] = r[:n]
+    lo, hi = topk_ops.encode_rows(rows.ravel())
+    return topk_ops.TopKState(scores=scores, row_lo=lo.reshape(p, k),
+                              row_hi=hi.reshape(p, k))
 
 
 # copy of kmersgwas_tpu.pipeline.scan.ScanResult, plus `steps`
@@ -72,8 +89,9 @@ class ScanResult:
                                     # = the selected set is PROVEN equal to
                                     # the exact-score top-k (certify_column)
     steps: dict = field(default_factory=dict)    # scan-step branch counts
-                                    # (narrow/wide/fallback/flush) and
-                                    # per-batch host seconds (step_s)
+                                    # (narrow/wide/fallback/flush; summed
+                                    # over a mesh's shards) and per-batch
+                                    # host seconds (step_s)
 
 
 # copy of kmersgwas_tpu.pipeline.scan.CERTIFY_BAND / CERTIFY_EPS
@@ -174,11 +192,16 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     certify_topk: carry CERTIFY_BAND extra slots, re-score every carried
     candidate exactly in f64 at finalize, re-rank by (exact score desc,
     row asc) and prove per column that the set is the exact-score top-k.
-    mesh: multi-device scans are not ported; passing one raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "kmersgwas_tpu_torch runs single-device scans only")
-    dev = require_device(device)
+    mesh: an optional parallel/sharding.Mesh (default: one shard on
+    `device`). Every batch (padded to a multiple of D * TILE_ROWS) is cut
+    into D row shards, each scanned by the same step into its own state
+    on its device, and the exact global top-k is merged at finalize: the
+    result (rows, order, scores) is the single-device run's. Batches are
+    staged on the first shard's device, whose kind `device` must name.
+    Checkpoints hold the merged plain state, so they resume in either
+    package and under any mesh."""
+    dev, mesh = shard_mod.home_device(mesh, device)
+    n_devices = mesh.size
     reader = KmersTableReader(table_base, names_to_use=pheno_accessions)
     n_used = reader.n_used
     min_count = effective_min_count(n_used, maf, mac)
@@ -196,22 +219,18 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
                  "min_count": min_count, "k_eff": k_eff, "n_pheno": p}
     n_tested = 0
     start_row = 0
-    state = ss.init_buffered_state(p, k_eff, BUF_CAP, dev)
+    resumed_plain = None
     if checkpoint_path:
         resumed = ckpt.load_scan_state(checkpoint_path, meta=ckpt_meta)
         if resumed is not None and resumed[3] == stream_tag:
-            plain, start_row, n_tested = resumed[:3]
-            state.scores = torch.from_numpy(
-                np.asarray(plain.scores, np.float32)).to(dev)
-            state.row_lo = torch.from_numpy(
-                np.asarray(plain.row_lo, np.int32)).to(dev)
-            state.row_hi = torch.from_numpy(
-                np.asarray(plain.row_hi, np.int32)).to(dev)
-            state.thresh = state.scores[:, -1].clone()
-    # every batch is padded to one shape; padding rows carry popcnt == 0
-    # and score -inf inside the step
-    pad_to = -(-batch_size // TILE_ROWS) * TILE_ROWS
-    cand_k = min(max(256, k_eff // 8), k_eff, pad_to)
+            resumed_plain, start_row, n_tested = resumed[:3]
+    states = shard_mod.init_sharded_buffered_state(
+        mesh, p, k_eff, BUF_CAP, seed_state=resumed_plain)
+    # every batch is padded to one shape, a whole number of tiles per
+    # shard; padding rows carry popcnt == 0 and score -inf inside the step
+    quantum = n_devices * TILE_ROWS
+    pad_to = -(-batch_size // quantum) * quantum
+    cand_k = min(max(256, k_eff // 8), k_eff, pad_to // n_devices)
 
     dt = None
     if dtable_cache:
@@ -238,6 +257,17 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     timings = {}
     steps = {"narrow": 0, "wide": 0, "fallback": 0, "flush": 0,
              "step_s": []}
+    step_kw = dict(n_used=n_used, min_count=min_count, cand_k=cand_k,
+                   tile_rows=TILE_ROWS, cand_w=CAND_W, cand_q=CAND_Q,
+                   precision=score_precision, counts=steps)
+    step_fn = shard_mod.build_sharded_scan_step_compact(mesh, **step_kw)
+    yp_s, ysum_s = shard_mod.replicate(mesh, yp, ysum)
+
+    def plain_state():
+        if len(states) == 1:
+            return ss.flush_buffered(states[0])
+        return _merged_to_topk(shard_mod.finalize_sharded_buffered(states),
+                               p, k_eff)
     timer = StageTimer("scan", "kmers", quiet=progress is not None)
     t_stream = time.perf_counter()
     next_pos = start_row
@@ -248,21 +278,16 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
         n_tested += r
         if pats is not None:
             patterns.add(pats)
-        ss.scan_step_compact(
-            state, *batch, yp, ysum, n_used=n_used,
-            min_count=min_count, cand_k=cand_k, tile_rows=TILE_ROWS,
-            cand_w=CAND_W, cand_q=CAND_Q, precision=score_precision,
-            counts=steps)
-        inflight.append(step_event(dev))
+        step_fn(states, *shard_mod.shard_batch(mesh, batch), yp_s, ysum_s)
+        inflight.append([step_event(d) for d in mesh.distinct()])
         if len(inflight) > _INFLIGHT:
             drain(inflight.popleft())
         steps["step_s"].append(time.perf_counter() - t_step)
         batch_i += 1
         next_pos = pos_after
         if checkpoint_path and batch_i % checkpoint_every == 0:
-            ckpt.save_scan_state(checkpoint_path, ss.flush_buffered(state),
-                                 next_pos, n_tested, stream=stream_tag,
-                                 meta=ckpt_meta)
+            ckpt.save_scan_state(checkpoint_path, plain_state(), next_pos,
+                                 n_tested, stream=stream_tag, meta=ckpt_meta)
         timer.add(r)
         if progress is not None:
             progress(r)
@@ -272,7 +297,7 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     timings["stream"] = time.perf_counter() - t_stream
 
     t_fin = time.perf_counter()
-    per_pheno = topk_ops.finalize(ss.flush_buffered(state))
+    per_pheno = shard_mod.finalize_sharded_buffered(states)
     timings["finalize"] = time.perf_counter() - t_fin
 
     # resolve winner rows -> k-mer codes + packed PA: chunked-run reads from

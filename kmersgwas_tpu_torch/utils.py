@@ -38,9 +38,11 @@ def step_event(device: torch.device):
 def drain(event) -> None:
     """Backpressure point of the bounded dispatch pipeline: wait until the
     device has completed the step that recorded `event` (a few batches
-    back), so no more than a fixed number of batches' inputs stay alive."""
-    if event is not None:
-        event.synchronize()
+    back), so no more than a fixed number of batches' inputs stay alive.
+    `event` may be a list (one event per device of a mesh)."""
+    for ev in event if isinstance(event, list) else (event,):
+        if ev is not None:
+            ev.synchronize()
 
 
 class StageTimer:

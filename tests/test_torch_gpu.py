@@ -315,6 +315,77 @@ def test_gen_planes_kernel_equals_plain(cuda, rows, w32, seed, step):
     assert torch.equal(pc, bitplanes.popcount_rows(planes))
 
 
+@pytest.mark.parametrize("n_valid", [4096, 3001, 0])
+def test_kinship_accumulate_masked_launches_k7_on_a_prefix(cuda, n_valid):
+    """kinship_accumulate_masked on the card: a prefix mask runs K7 (its
+    transpose and Gram each launched once) over the valid rows, bit-equal
+    to the plain masked Gram; a mask that is not a prefix raises, and
+    nothing is launched."""
+    packed, _, _, _ = batch(4096, 300, 1, 17, cuda)
+    packed = packed.clone()
+    packed[n_valid:] = torch.randint(-2 ** 31, 2 ** 31,
+                                     packed[n_valid:].shape,
+                                     dtype=torch.int32, device=cuda)
+    n_pad = packed.shape[1] * 32
+    valid = (torch.arange(4096) < n_valid).to(torch.int8)
+    acc0 = torch.randint(-9, 9, (n_pad, n_pad), dtype=torch.int32)
+    want = kinship.kinship_accumulate_masked(acc0.clone(), packed.cpu(),
+                                             valid)
+    launches = (kinship.kinship_accumulate.launches,
+                kinship.transpose_bits.launches)
+    got = kinship.kinship_accumulate_masked(acc0.to(cuda), packed,
+                                            valid.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    step = int(n_valid > 0)
+    assert (kinship.kinship_accumulate.launches,
+            kinship.transpose_bits.launches) == (launches[0] + step,
+                                                 launches[1] + step)
+    holes = valid.clone()
+    holes[5] = 0
+    holes[-1] = 1
+    with pytest.raises(ValueError, match="prefix"):
+        kinship.kinship_accumulate_masked(acc0.to(cuda), packed,
+                                          holes.to(cuda))
+    assert kinship.kinship_accumulate.launches == launches[0] + step
+
+
+def test_mesh_of_two_card_shards_equals_one_device(cuda, tmp_path):
+    """A 2-shard mesh on cuda:0: associate (K1 on each shard's batch, K2 on
+    its fallbacks) and kinship_from_table (K7 on each shard) equal one
+    device's results on the card exactly."""
+    from kmersgwas_tpu_torch.parallel import sharding
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    from kmersgwas_tpu_torch.pipeline import scan
+    rng = np.random.default_rng(12)
+    n, rows, kmer_len = 150, 40_000, 31
+    base, names = write_table(tmp_path, rng, n, rows, kmer_len)
+    y = np.round(rng.uniform(-8, 8, size=(n, 3)) * 8) / 8
+    mesh = sharding.make_mesh(["cuda:0", "cuda:0"])
+    kw = dict(kmer_len=kmer_len, n_top=8, batch_size=2048)
+    one = scan.associate(base, names, y, list("abc"), device="cuda", **kw)
+    launches = (score.score_batch_t_topw.launches,
+                score.score_batch_t_bmax.launches)
+    got = scan.associate(base, names, y, list("abc"), device="cuda",
+                         mesh=mesh, **kw)
+    n_batches = -(-got.n_tested // 2048)
+    assert score.score_batch_t_topw.launches - launches[0] == 2 * n_batches
+    assert score.score_batch_t_bmax.launches > launches[1]
+    assert got.n_tested == one.n_tested
+    for j in range(3):
+        np.testing.assert_array_equal(got.rows[j], one.rows[j])
+        np.testing.assert_array_equal(got.scores[j], one.scores[j])
+    k7 = kinship.kinship_accumulate.launches
+    kin = km.kinship_from_table(base, device="cuda", batch_size=4097)
+    n_batches, k7 = kinship.kinship_accumulate.launches - k7, \
+        kinship.kinship_accumulate.launches
+    np.testing.assert_array_equal(
+        km.kinship_from_table(base, device="cuda", batch_size=4097,
+                              mesh=mesh), kin)
+    # every batch launches K7 on both shards but a short last one, whose
+    # rows may all fall in shard 0
+    assert kinship.kinship_accumulate.launches - k7 >= 2 * n_batches - 1
+
+
 def test_kinship_on_card_equals_cpu(cuda, tmp_path):
     """kinship_from_table on the card, both routes and a checkpointed
     resume, equals the CPU run exactly; K7 runs on every batch."""

@@ -23,6 +23,7 @@ import shutil
 import jax
 import numpy as np
 import pytest
+import torch
 
 import kmersgwas_tpu.pipeline.gwas as jgwas
 from kmersgwas_tpu.cli.__main__ import main as jax_cli
@@ -308,11 +309,31 @@ def test_lmm_backend_rule():
 @pytest.mark.parametrize("flags", [
     ["--devices", "2"],
 ])
-def test_cli_gwas_refuses_what_is_not_ported(tmp_path, pop, flags):
-    with pytest.raises(NotImplementedError):
+def test_cli_gwas_refuses_what_is_not_ported(tmp_path, pop, flags,
+                                             monkeypatch):
+    """Nothing of `gwas` is left unported: `--devices 2`, refused until
+    the port had a device mesh, now runs on 2 cpu shards to one device's
+    artifacts (each run on its own copy of the table, as gwas caches its
+    kinship beside it); with "cuda" and no card it is refused before any
+    output."""
+    trees = []
+    for tag, extra in (("one", []), ("mesh", flags)):
+        table = str(tmp_path / f"{tag}_pop")
+        for ext in (".table", ".names"):
+            shutil.copy(pop["base"] + ext, table + ext)
+        port_cli(["gwas", "--pheno", str(pop["pheno_path"]),
+                  "--kmers_table", table, "--outdir", str(tmp_path / tag),
+                  "-l", str(K), "-k", "30", "--permutations", "8", "--mac",
+                  "2", "--batch_size", "500", "--min_data_points", "10",
+                  "--lmm_backend", "host64", "--device", "cpu"] + extra)
+        trees.append({f: v for f, v in read_tree(tmp_path / tag).items()
+                      if f not in ("log_file", "summary.json")})
+    assert trees[0] == trees[1] and "kmers/threshold_5per" in trees[0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
         port_cli(["gwas", "--pheno", str(pop["pheno_path"]),
                   "--kmers_table", pop["base"], "--outdir",
-                  str(tmp_path / "out"), "-l", str(K), "--device", "cpu"]
+                  str(tmp_path / "out"), "-l", str(K), "--device", "cuda"]
                  + flags)
     assert not (tmp_path / "out").exists()
 

@@ -309,3 +309,89 @@ def test_checkpoints_per_process(pop, tmp_path):
     diff = [f for f in trees[0] if f not in ("log_file", "summary.json")
             and trees[0][f] != trees[1][f]]
     assert not diff, diff
+
+
+def test_gwas_mp_crash_resume(tmp_path, capsys):
+    """Port of tests/test_multiprocess.py:580-685 with 3 processes whose
+    k-mer spans are uneven (the codes crowd the low end of the k-mer
+    space): every `gwas-mp` process is SIGKILLed once all three scan
+    checkpoints exist (before any result is written); the same command
+    run again resumes from them and writes a single-process `gwas`'s
+    artifacts byte for byte (both with --certify_topk, so the ranks do not
+    depend on the scan step's f32 sums)."""
+    import signal
+    import time
+    from kmersgwas_tpu_torch.core import formats
+    from kmersgwas_tpu_torch.parallel import multihost
+
+    rng = np.random.default_rng(88)
+    rows, n, kmer_len, n_proc = 12000, 32, 15, 3
+    codes = np.unique((rng.random(3 * rows) ** 3
+                       * (1 << 2 * kmer_len)).astype(np.uint64))
+    kmers = np.sort(rng.choice(codes, size=rows, replace=False))
+    bits = np.zeros((rows, 64), dtype=np.uint8)
+    bits[:, :n] = rng.integers(0, 2, size=(rows, n))
+    pa = np.packbits(bits, axis=1, bitorder="little").view("<u8")
+    names = [f"acc{i}" for i in range(n)]
+    tables = {}
+    for tag in ("mp", "one"):
+        base = str(tmp_path / f"{tag}_pop")
+        formats.write_names(base, names)
+        with open(base + ".table", "wb") as f:
+            formats.write_table_header(f, n, kmer_len)
+            formats.write_table_rows(f, kmers, pa)
+        tables[tag] = base
+    spans = [multihost.host_row_span(tables["mp"], i, n_proc)
+             for i in range(n_proc)]
+    sizes = [e - s for s, e in spans]
+    assert sum(sizes) == rows and max(sizes) > 2 * min(sizes) > 0, sizes
+    pheno = str(tmp_path / "t.pheno")
+    formats.write_phenotypes(pheno, formats.PhenotypeTable(
+        names=["phenotype_value"], accessions=names,
+        values=rng.normal(size=(n, 1))))
+    ck = str(tmp_path / "ck")
+    common = ["--pheno", pheno, "-l", str(kmer_len), "-k", "12",
+              "--permutations", "12", "--maf", "0.05", "--mac", "2",
+              "--batch_size", "384", "--min_data_points", "10", "--seed",
+              "0", "--lmm_backend", "host64", "--device", "cpu",
+              "--certify_topk"]
+    mp_args = ["gwas-mp", "--kmers_table", tables["mp"], "--outdir",
+               str(tmp_path / "mp"), "--checkpoint", ck,
+               "--checkpoint_every", "1", *common]
+
+    # attempt 1: kill every process once all scan checkpoints exist
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "kmersgwas_tpu_torch.cli", *mp_args,
+         "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+         str(n_proc), "--process_id", str(i)],
+        env=dict(os.environ, PYTHONPATH=ROOT), cwd=tmp_path,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for i in range(n_proc)]
+    scan_cks = [f"{ck}.scan.p{i}.npz" for i in range(n_proc)]
+    deadline = time.time() + TIMEOUT
+    try:
+        while time.time() < deadline and any(pr.poll() is None
+                                             for pr in procs):
+            if all(os.path.exists(p) for p in scan_cks):
+                break
+            time.sleep(0.02)
+        interrupted = all(os.path.exists(p) for p in scan_cks) and \
+            all(pr.poll() is None for pr in procs)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.send_signal(signal.SIGKILL)
+        outs = [pr.communicate()[0].decode(errors="replace") for pr in procs]
+    assert interrupted, "\n".join(o[-2000:] for o in outs)
+    assert not (tmp_path / "mp" / "kmers" / "threshold_5per").exists()
+    done = [int(np.load(p)["n_tested"]) for p in scan_cks]
+    assert 0 < sum(done) < rows
+
+    # attempt 2: the same command resumes from the per-process checkpoints
+    run_ranks(mp_args, n_proc, tmp_path)
+    capsys.readouterr()
+    port_cli(["gwas", "--kmers_table", tables["one"], "--outdir",
+              str(tmp_path / "one"), *common])
+    assert_same_gwas(read_tree(tmp_path / "mp"), read_tree(tmp_path / "one"),
+                     n_processes=n_proc)

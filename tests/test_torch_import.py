@@ -40,6 +40,11 @@ def test_port_imports_without_jax_or_a_build():
         "import kmersgwas_tpu_torch.tools.at_scale_stream\n"
         "import kmersgwas_tpu_torch.tools.probes\n"
         "import kmersgwas_tpu_torch.tools.exp_kernel\n"
+        "import kmersgwas_tpu_torch.tools.prof_step\n"
+        "import kmersgwas_tpu_torch.tools.prof_r5_certify\n"
+        "import kmersgwas_tpu_torch.tools.prof_r5_feedgap\n"
+        "import kmersgwas_tpu_torch.tools.bench_ingest\n"
+        "import kmersgwas_tpu_torch.tools.at_scale_run\n"
         "import kmersgwas_tpu_torch.ops.tilereduce\n"
         "import kmersgwas_tpu_torch.native\n"
         "import kmersgwas_tpu_torch.ingest.streamio\n"

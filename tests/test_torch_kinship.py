@@ -78,9 +78,16 @@ def test_accumulate_masked_matches_jax():
                                           jnp.asarray(packed),
                                           jnp.asarray(valid))
     got = kinship.kinship_accumulate_masked(
-        torch.from_numpy(acc0), bitplanes.as_planes(packed),
-        torch.from_numpy(valid))
+        torch.from_numpy(acc0.copy()), bitplanes.as_planes(packed),
+        torch.from_numpy(valid))     # in place: not on JAX's input buffer
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # in place, as on the card: the same partial taken twice adds twice
+    acc = torch.ones((128, 128), dtype=torch.int32)
+    assert kinship.kinship_accumulate_masked(
+        acc, bitplanes.as_planes(packed), torch.from_numpy(valid)) is acc
+    kinship.kinship_accumulate_masked(acc, bitplanes.as_planes(packed),
+                                      torch.from_numpy(valid))
+    np.testing.assert_array_equal(acc.numpy(), 1 + 2 * np.asarray(want))
 
 
 @pytest.mark.parametrize("spill", [None, 150])
@@ -114,6 +121,31 @@ def test_accumulator_uneven_batches_match_jax(monkeypatch, spill):
     if spill:
         # a flush before every add that would pass the bound, and the last
         assert [f for f in flushes if f] == [37, 133, 200, 65, 265]
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_accumulator_over_a_mesh_matches_jax(monkeypatch, shards):
+    """The accumulator over a mesh of cpu shards (one partial each, every
+    batch cut into row shards whose valid rows are a prefix, some of them
+    empty): uneven batches with a stale tail, the spill bound patched to
+    150 rows, end equal to the JAX package's single accumulator."""
+    from kmersgwas_tpu_torch.parallel import sharding
+    monkeypatch.setattr(kinship, "SPILL_ROWS", 150)
+    packed = random_planes(5, 700, 90)
+    ja = jkin.KinshipAccumulator(n_used=90, n_pad=128)
+    pa = kinship.KinshipAccumulator(
+        n_used=90, n_pad=128, mesh=sharding.make_mesh(["cpu"] * shards))
+    assert len(pa.device_accs) == shards
+    assert pa.devices == [torch.device("cpu")]
+    s = 0
+    for r in [37, 128, 5, 200, 64, 1, 265]:
+        ja.add(jnp.asarray(packed[s:s + r]))
+        pa.add(bitplanes.as_planes(packed[s:s + r + 50]), r)
+        s += r
+    got, want = pa.finalize(), ja.finalize()
+    assert pa.n_rows == ja.n_rows
+    np.testing.assert_array_equal(pa.total, ja.total)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("route", ["table", "dtable"])
@@ -206,13 +238,22 @@ def test_kinship_cli_stdout_matches_jax(tmp_path, capsys):
     assert got == want and len(got.splitlines()) == 16
 
 
-def test_refusals(tmp_path, monkeypatch):
+def test_refusals(tmp_path, monkeypatch, capsys):
+    """A mesh and `kinship --devices 2` are accepted and give the
+    single-device matrix and stdout; a checkpoint of another config, CPU
+    tensors on another device and a missing card are refused."""
+    from kmersgwas_tpu_torch.parallel import sharding
     pop = build_population(tmp_path, n_samples=16, n_kmers=200)
-    with pytest.raises(NotImplementedError):
-        km.kinship_from_table(pop["base"], device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
+    np.testing.assert_array_equal(
+        km.kinship_from_table(pop["base"], device="cpu", batch_size=50,
+                              mesh=sharding.make_mesh(["cpu"] * 2)),
+        km.kinship_from_table(pop["base"], device="cpu", batch_size=50))
+    outs = []
+    for n_dev in ("1", "2"):
         port_cli(["kinship", "-t", pop["base"], "--maf", "0.1",
-                  "--devices", "2", "--device", "cpu"])
+                  "--devices", n_dev, "--device", "cpu"])
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 16
     # a checkpoint of another table/config is refused, not silently used
     ck = str(tmp_path / "ck")
     jkm.kinship_from_table(pop["base"], maf=0.1, batch_size=50,

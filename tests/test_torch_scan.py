@@ -168,12 +168,21 @@ def test_cli_associate_identical_outputs(tmp_path):
 
 
 def test_associate_refuses_mesh_and_missing_card(tmp_path, monkeypatch):
+    """A mesh is accepted (2 cpu shards give the single-device result; a
+    mesh of another device kind than `device` raises); "cuda" without a
+    card raises."""
     import torch
+    from kmersgwas_tpu_torch.parallel import sharding
     pop = build_population(tmp_path, n_samples=10, n_kmers=60)
     y = dyadic(2, 10, 1)
-    with pytest.raises(NotImplementedError):
-        pscan.associate(pop["base"], pop["names"], y, ["p"], device="cpu",
-                        mesh=object(), **KW)
+    got = pscan.associate(pop["base"], pop["names"], y, ["p"], device="cpu",
+                          mesh=sharding.make_mesh(["cpu", "cpu"]), **KW)
+    assert_same(got, pscan.associate(pop["base"], pop["names"], y, ["p"],
+                                     device="cpu", **KW))
+    with pytest.raises(ValueError, match="disagree"):
+        pscan.associate(pop["base"], pop["names"], y, ["p"], device="cuda"
+                        if torch.cuda.is_available() else "cpu",
+                        mesh=sharding.Mesh((torch.device("meta"),)), **KW)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         pscan.associate(pop["base"], pop["names"], y, ["p"], device="cuda",

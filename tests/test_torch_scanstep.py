@@ -242,3 +242,107 @@ def test_jax_midstream_state_continues_in_port(split):
     plain = convert.topk_state_from_numpy(
         {k: np.asarray(v) for k, v in want._asdict().items()}, "cpu")
     np.testing.assert_array_equal(plain.scores.numpy(), got_s)
+
+
+@pytest.mark.parametrize("rows", [300, 12])
+def test_topk_init_state_and_update_match_jax(rows):
+    """topk.init_state and three topk.update merges (rows > K: the blocked
+    top-k; rows <= K: the whole batch) on tie-heavy non-negative scores
+    with -inf lanes equal the JAX functions: scores and rows, exactly."""
+    rng = np.random.default_rng(rows)
+    p, k = 4, 20
+    st, jst = topk.init_state(p, k), jtopk.init_state(p, k)
+    for name, a in zip(st._fields, st):
+        np.testing.assert_array_equal(a.numpy(),
+                                      np.asarray(getattr(jst, name)))
+    for b in range(3):
+        # squares, as scores are: no -0 (lax.top_k ranks +0 above -0)
+        sc = (np.round(rng.normal(size=(rows, p)) * 2) ** 2).astype(
+            np.float32)
+        sc[rng.random((rows, p)) < 0.1] = -np.inf
+        lo, hi = jtopk.encode_rows(np.arange(b * rows, (b + 1) * rows)
+                                   + (1 << 30))
+        jst = jtopk.update(jst, jnp.asarray(sc), jnp.asarray(lo),
+                           jnp.asarray(hi))
+        st = topk.update(st, torch.from_numpy(sc), torch.from_numpy(lo),
+                         torch.from_numpy(hi))
+        for name, a in zip(st._fields, st):
+            np.testing.assert_array_equal(a.numpy(),
+                                          np.asarray(getattr(jst, name)))
+
+
+def buffered_streams(tie_column):
+    y, batches = stream(41, p=3, n_batches=24, tie_column=tie_column)
+    kw = dict(n_used=N, min_count=MIN_COUNT, cand_c=8, cand_k=12)
+    return y, batches, kw
+
+
+@pytest.mark.parametrize("tie_column", [None, 1])
+def test_scan_step_buffered_matches_jax(tie_column):
+    """scan_step_buffered against JAX `scan_step_buffered(kernel="xla")`
+    (K=16, cand_c 8, capacity 32), exactly: after every batch the flushed
+    top-k (flush_buffered) is equal. Where both sides took the same branch
+    the buffers are equal too; the branches may differ, since the port's
+    block maxima are contiguous 16-lane blocks and the reference's XLA
+    route strided ones, so each side's extraction may prove exactness on
+    different batches (both sides are exact either way). Both branches
+    run."""
+    y, batches, kw = buffered_streams(tie_column)
+    jyp, jysum = jscore.prepare_phenotypes(y, N_PAD)
+    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
+    jst = jss.init_buffered_state(3, 16, buf_cap=32)
+    st = scanstep.init_buffered_state(3, 16, buf_cap=32, device="cpu")
+    counts, same = {}, 0
+    for b in batches:
+        packed, pc, lo, hi = b
+        jn0 = int(jst.buf_n)
+        jst = jss.scan_step_buffered(jst, jnp.asarray(packed),
+                                     jnp.asarray(pc), jnp.asarray(lo),
+                                     jnp.asarray(hi), jyp, jysum,
+                                     kernel="xla", **kw)
+        before = dict(counts)
+        scanstep.scan_step_buffered(st, *port_batch(b), yp, ysum,
+                                    counts=counts, **kw)
+        port_buffered = counts.get("wide", 0) > before.get("wide", 0)
+        if port_buffered == (int(jst.buf_n) > jn0):
+            same += 1
+            assert st.buf_n == int(jst.buf_n)
+            for name in ("buf_v", "buf_lo", "buf_hi", "scores", "thresh"):
+                np.testing.assert_array_equal(
+                    getattr(st, name).numpy(), np.asarray(getattr(jst, name)))
+        want = jss.flush_buffered(jst)
+        got = scanstep.flush_buffered(st)
+        for name in ("scores", "row_lo", "row_hi"):
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          np.asarray(getattr(want, name)))
+    assert counts.get("wide", 0) >= 3 and counts.get("fallback", 0) >= 1, \
+        counts
+    assert same >= len(batches) // 2
+
+
+def test_scan_step_buffered_multi_equals_sequential_and_jax():
+    """scan_step_buffered_multi over (B, R, ...) stacks: the state of B
+    sequential scan_step_buffered calls, field for field, and after the
+    flush the JAX scan_step_buffered_multi's top-k."""
+    y, batches, kw = buffered_streams(None)
+    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
+    stacked = [np.stack(x) for x in zip(*batches)]
+    multi = scanstep.scan_step_buffered_multi(
+        scanstep.init_buffered_state(3, 16, buf_cap=32, device="cpu"),
+        *port_batch(stacked), yp, ysum, **kw)
+    seq = scanstep.init_buffered_state(3, 16, buf_cap=32, device="cpu")
+    for b in batches:
+        scanstep.scan_step_buffered(seq, *port_batch(b), yp, ysum, **kw)
+    assert multi.buf_n == seq.buf_n
+    for name in ("scores", "row_lo", "row_hi", "buf_v", "buf_lo", "buf_hi",
+                 "thresh"):
+        np.testing.assert_array_equal(getattr(multi, name).numpy(),
+                                      getattr(seq, name).numpy())
+    jyp, jysum = jscore.prepare_phenotypes(y, N_PAD)
+    want = jss.flush_buffered(jss.scan_step_buffered_multi(
+        jss.init_buffered_state(3, 16, buf_cap=32),
+        *(jnp.asarray(x) for x in stacked), jyp, jysum, kernel="xla", **kw))
+    got = scanstep.flush_buffered(multi)
+    for name in ("scores", "row_lo", "row_hi"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)))
