@@ -1201,14 +1201,15 @@ def is_range(name):
     return re.fullmatch(re.escape(RANGE) + r"\w+", name) is not None
 
 
-def range_ms(prof, name):
+def range_ms(prof, name, skip=lambda kernel: False):
     """Device time in ms of the kernels launched inside the port's range
     RANGE + `name`, summed over the profile: the kernels the
-    profiler links to the range's host events and their descendants."""
+    profiler links to the range's host events and their descendants,
+    but those whose name `skip` takes."""
     from torch.autograd import DeviceType
 
     def kernels_us(e):
-        return (sum(k.duration for k in e.kernels)
+        return (sum(k.duration for k in e.kernels if not skip(k.name))
                 + sum(kernels_us(c) for c in e.cpu_children))
     return sum(kernels_us(e) for e in prof.events()
                if e.name == RANGE + name
@@ -1223,12 +1224,15 @@ def fallback_split(prof, wall, n_steps, kernel):
     busy, per = device_busy(prof)
     if busy <= 0:
         return "no device time in the trace: not measured"
-    # K2's kernel is launched through ctypes, so the profiler links no
-    # host event to it: it is found by name, and K2's range holds the
-    # PyTorch kernels of its operand build
+    # K2's kernel is launched through ctypes, with no PyTorch op: it is
+    # found by name. Whether the profiler links it to the range open at
+    # its launch depends on the range (record_function: no; the
+    # profiler's fast range, the port's spans: yes), so K2's range is
+    # read without it, as the PyTorch kernels of its operand build
     k2 = sum(t for nm, t in per.items()
              if is_plane_kernel(nm, "score_bmax"))
-    build = range_ms(prof, "score_batch_t_bmax")
+    build = range_ms(prof, "score_batch_t_bmax",
+                     skip=lambda nm: is_plane_kernel(nm, "score_bmax"))
     tkb = range_ms(prof, "top_k_from_bmax")
     merge = range_ms(prof, "_flush_merge")
     cand = sum(t for nm, t in per.items() if kernel in nm)

@@ -11,7 +11,9 @@ output equals one device's. The ingest and export commands (`count`,
 `filter-kmers`, `kmc-import`, `kmc-export`, `histogram`) are host code,
 as in the JAX package: the native ingest library where it builds, else
 (or with --no-native) the numpy route, which writes the same bytes; the
-route taken is told on stderr.
+route taken is told on stderr. `gwas`, `associate` and `kinship` take
+`--trace PATH`: the run's spans and counters (utils.tracing) written to
+PATH as Chrome-trace JSON.
 """
 from __future__ import annotations
 
@@ -19,6 +21,12 @@ import argparse
 import sys
 
 import numpy as np
+
+
+def _add_trace(p):
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="write the run's spans and counters to PATH as "
+                        "Chrome-trace JSON (open it in Perfetto)")
 
 
 def _add_gwas(sub):
@@ -75,6 +83,7 @@ def _add_gwas(sub):
                         "(<base>.kin / <base>.scan)")
     p.add_argument("--checkpoint_every", type=int, default=20,
                    help="batches between checkpoint writes")
+    _add_trace(p)
 
     def run(a):
         from ..pipeline.gwas import GWASConfig, run_gwas
@@ -343,6 +352,7 @@ def _add_associate(sub):
                         "with --device cpu")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the scan runs (cuda raises without a card)")
+    _add_trace(p)
 
     def run(a):
         from ..core import formats
@@ -489,6 +499,7 @@ def _add_kinship(sub):
                         "with --device cpu")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the Gram runs (cuda raises without a card)")
+    _add_trace(p)
 
     def run(a):
         from ..parallel import sharding as shard_mod
@@ -673,7 +684,12 @@ def main(argv=None):
                 _add_filter_kmers, _add_kmc, _add_histogram):
         add(sub)
     args = ap.parse_args(argv)
-    return args.func(args)
+    trace = getattr(args, "trace", None)
+    if trace is None:
+        return args.func(args)
+    from ..utils import tracing
+    with tracing(trace):
+        return args.func(args)
 
 
 if __name__ == "__main__":

@@ -18,12 +18,17 @@ bit transpose, once per batch: the rows' bits sample-major, 128 rows a
 chunk) and the Gram on int8 `wgmma` over the transposed bits. There is no
 other route and no fallback. Each wrapper counts its calls
 (`kinship_accumulate.launches`, `transpose_bits.launches`).
+
+Traced (utils.span, utils.count): `kinship_accumulate` (K7: the transpose
+and the Gram), the accumulator's `kinship_add`, `kinship_flush` and
+`kinship_finalize`, and the counter `kinship.flushes`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..utils import count, span
 from . import _cuda
 from .bitplanes import unpack_bits_pm1
 
@@ -113,6 +118,7 @@ def transpose_bits(packed: torch.Tensor, n_rows: int) -> torch.Tensor:
 transpose_bits.launches = 0
 
 
+@span("kinship_accumulate")
 def kinship_accumulate(acc: torch.Tensor, packed: torch.Tensor,
                        n_rows: int | None = None) -> torch.Tensor:
     """acc (N_pad, N_pad) int32 += A^T A over rows [0, n_rows) of `packed`
@@ -216,6 +222,7 @@ class KinshipAccumulator:
         """The partials' devices without repeats, in shard order."""
         return list(dict.fromkeys(self.shard_devices))
 
+    @span("kinship_add")
     def add(self, packed_dev: torch.Tensor, n_rows: int | None = None) -> None:
         """Accumulate rows [0, n_rows) of a batch (default: all of it)."""
         rows = int(packed_dev.shape[0]) if n_rows is None else int(n_rows)
@@ -229,8 +236,10 @@ class KinshipAccumulator:
         self.rows_in_acc += rows
         self.n_rows += rows
 
+    @span("kinship_flush")
     def flush(self) -> None:
         if self.rows_in_acc:
+            count("kinship.flushes")
             part = sum(acc.cpu().numpy().astype(np.int64)
                        for acc in self.device_accs)
             self.total += part[: self.n_used, : self.n_used]
@@ -238,6 +247,7 @@ class KinshipAccumulator:
                 acc.zero_()
             self.rows_in_acc = 0
 
+    @span("kinship_finalize")
     def finalize(self) -> np.ndarray:
         """Normalized kinship (N, N) float64, diagonal forced to 1
         (emma_kinship_kmers.cpp:95-102)."""

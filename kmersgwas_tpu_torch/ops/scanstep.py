@@ -31,11 +31,15 @@ on the fallback's scores. The state is a mutable object and is updated IN
 PLACE (the buffer writes and the flushes replace or overwrite its
 tensors); callers that need an old state copy it first.
 
-A fallback's pieces run inside torch.profiler ranges named
-kgt::<function>: score_ops.score_batch_t_bmax,
-topk_ops.top_k_from_bmax and `_flush_merge` (chip_smoke.py's phase 4 splits
-a fallback step's device time by them). With no profiler running a range
-costs one enter and one exit call on the host.
+The step's pieces are spans (utils.span): torch.profiler ranges
+kgt::<name> while a profiler records, and the recorder's spans while
+tracing is on. `scan_step_compact` holds `compact_candidates` (with K1's
+`score_batch_t_topw` or K3's `score_batch_t_tilemax`), `step_flags` (the
+flags' copy to the host, the step's one sync) and `compact_apply`; a
+fallback adds `score_batch_t_bmax`, then `_flush_merge` with its
+`top_k_from_bmax` calls, inside `compact_apply` (chip_smoke.py's phase 4
+splits a fallback step's device time by the last three). With tracing
+off a span enters no profiler range.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils import span
 from . import score as score_ops
 from . import topk as topk_ops
 
@@ -136,7 +141,7 @@ def _clear_buffer(st: BufferedTopKState, rows=slice(None)) -> None:
     st.buf_hi[rows] = 0
 
 
-@torch.profiler.record_function("kgt::_flush_merge")
+@span("_flush_merge")
 def _flush_merge(scores, s_lo, s_hi, buf_v, buf_lo, buf_hi, sc, bmax,
                  row_lo, row_hi, cand_k: int, block: int = 16):
     """Exact wide merge of (state + buffer + this batch's scores) -> new
@@ -238,6 +243,7 @@ def _tilemax_candidates(state: BufferedTopKState, packed, popcnt,
     return v, g, okc
 
 
+@span("compact_candidates")
 def compact_candidates(state: BufferedTopKState, packed, popcnt,
                        y_padded, y_sum, *, n_used: int, min_count: int,
                        tile_rows: int, cand_w: int | None = None,
@@ -273,6 +279,13 @@ def compact_candidates(state: BufferedTopKState, packed, popcnt,
     return v, g, q, torch.stack([okc, nar_c])
 
 
+@span("step_flags")
+def step_flags(cands):
+    """compact_candidates' flags on the host: the step's one sync."""
+    return cands[3].cpu()
+
+
+@span("compact_apply")
 def compact_apply(state: BufferedTopKState, cands, flags_host, packed,
                   popcnt, row_lo, row_hi, y_padded, y_sum, *, n_used: int,
                   min_count: int, cand_k: int, precision: str = "default",
@@ -340,6 +353,7 @@ def compact_apply(state: BufferedTopKState, cands, flags_host, packed,
     return state
 
 
+@span("scan_step_compact")
 def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
                       row_hi, y_padded, y_sum, *, n_used: int,
                       min_count: int, cand_k: int, tile_rows: int,
@@ -374,7 +388,7 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
         min_count=min_count, tile_rows=tile_rows, cand_w=cand_w,
         cand_c=cand_c, cand_c2=cand_c2, cand_q=cand_q, precision=precision)
     return compact_apply(
-        state, cands, cands[3].cpu(), packed, popcnt, row_lo, row_hi,
+        state, cands, step_flags(cands), packed, popcnt, row_lo, row_hi,
         y_padded, y_sum, n_used=n_used, min_count=min_count, cand_k=cand_k,
         precision=precision, col_group=col_group, block=block, counts=counts)
 

@@ -26,13 +26,16 @@ at "default", three summing to y at "highest") in the kernel's layout
 
 Each kernel wrapper sends a CPU tensor to the plain version and a CUDA
 tensor to the kernel; there is no other route and no fallback. Each keeps
-a plain integer count of its kernel launches (`<wrapper>.launches`).
+a plain integer count of its kernel launches (`<wrapper>.launches`). The
+scan step's wrappers (`score_batch_t_topw`, `score_batch_t_tilemax`,
+`score_batch_t_bmax`) are spans of their names (utils.span).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..utils import span
 from . import _cuda
 from .bitplanes import unpack_bits
 from .topk import sort_desc_index_asc, top_k
@@ -437,6 +440,7 @@ def score_batch(packed, popcnt, y_padded, y_sum, *, n_used: int,
 score_batch.launches = 0
 
 
+@span("score_batch_t_topw")
 def score_batch_t_topw(packed, popcnt, y_padded, y_sum, thresh, *,
                        n_used: int, min_count: int, tile_rows: int,
                        cand_w: int, precision: str = "default"):
@@ -542,7 +546,7 @@ def score_batch_t_parity(packed, popcnt, y_padded, y_sum, thresh, *,
 score_batch_t_parity.launches = 0
 
 
-@torch.profiler.record_function("kgt::score_batch_t_bmax")
+@span("score_batch_t_bmax")
 def score_batch_t_bmax(packed, popcnt, y_padded, y_sum, *, n_used: int,
                        min_count: int, block: int = 16,
                        precision: str = "default"):
@@ -569,6 +573,7 @@ def score_batch_t_bmax(packed, popcnt, y_padded, y_sum, *, n_used: int,
 score_batch_t_bmax.launches = 0
 
 
+@span("score_batch_t_tilemax")
 def score_batch_t_tilemax(packed, popcnt, y_padded, y_sum, thresh, *,
                           n_used: int, min_count: int, tile_rows: int,
                           precision: str = "default"):

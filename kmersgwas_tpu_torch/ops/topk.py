@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import span
+
 _ROW_SPLIT = 1 << 30
 
 
@@ -96,7 +98,7 @@ def blocked_top_k(sc: torch.Tensor, k: int, block: int = 16):
     return v, cand_idx.gather(1, j)
 
 
-@torch.profiler.record_function("kgt::top_k_from_bmax")
+@span("top_k_from_bmax")
 def top_k_from_bmax(sc: torch.Tensor, bmax: torch.Tensor, k: int):
     """Top-k given precomputed block maxima (ops/score.score_batch_t_bmax):
     extraction gathers only k blocks per column instead of re-reading the

@@ -247,7 +247,7 @@ def build_sharded_scan_step_compact(mesh: Mesh, *, n_used: int,
             precision=precision) for d, st in enumerate(states)]
         for d, (st, c) in enumerate(zip(states, cands)):
             ss.compact_apply(
-                st, c, c[3].cpu(), packed[d], popcnt[d], row_lo[d],
+                st, c, ss.step_flags(c), packed[d], popcnt[d], row_lo[d],
                 row_hi[d], yp[d], ysum[d], n_used=n_used,
                 min_count=min_count, cand_k=cand_k, precision=precision,
                 col_group=col_group, block=block, counts=counts)

@@ -16,6 +16,13 @@ guarded by a CUDA event recorded after its copy was enqueued, so a buffer
 is never overwritten while its copy is in flight. `device_batches` (scan
 batches) and `device_planes` (kinship planes) run a feed and its staging on
 a prefetch thread.
+
+Traced (utils.span, utils.count): on the consumer's thread `ring_alloc`
+(a ring's pinned buffers), `feed_wait` and `upload`; on the prefetch
+thread, under the consumer's job, `feed_read`, `feed_put` and the ring's
+`ring_wait` (the slot's previous copy) and `ring_copy` (the pinned copy);
+the counters `feed.batches`, `feed.rows`, `feed.staged_bytes` and
+`ring.stalls` (a slot whose copy had not finished when staging took it).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import queue
 import numpy as np
 import torch
 
+from .. import utils
 from ..ops import topk as topk_ops
 
 
@@ -171,34 +179,58 @@ def kinship_feed(dt, batch_size: int, *, start_row: int = 0,
             os.close(fd)
 
 
-# copy of kmersgwas_tpu.pipeline.scan._prefetch
-def _prefetch(iterator, depth: int = 2):
+# kmersgwas_tpu.pipeline.scan._prefetch, with a staging step and spans
+def _prefetch(iterator, depth: int = 2, stage=None):
     """Run `iterator` on a background thread, buffering `depth` items, so
-    host-side batch prep overlaps device compute."""
+    host-side batch prep overlaps device compute; `stage`, if given, maps
+    each item on that thread. Traced (utils.span): `feed_wait`, the
+    consumer waiting for an item; on the thread, under the consumer's job,
+    `feed_read` (the iterator's next) and `feed_put` (blocked on a full
+    queue)."""
     import threading
     q = queue.Queue(maxsize=depth)
     _END = object()
     err = []
+    ctx = utils.carry()
 
     def worker():
-        try:
-            for item in iterator:
-                q.put(item)
-        except BaseException as e:   # propagate into the consumer
-            err.append(e)
-        finally:
-            q.put(_END)
+        with utils.carried(ctx):
+            try:
+                it = iter(iterator)
+                while True:
+                    with utils.span("feed_read"):
+                        item = next(it, _END)
+                    if item is _END:
+                        break
+                    if stage is not None:
+                        item = stage(item)
+                    with utils.span("feed_put"):
+                        q.put(item)
+            except BaseException as e:   # propagate into the consumer
+                err.append(e)
+            finally:
+                q.put(_END)
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with utils.span("feed_wait"):
+            item = q.get()
         if item is _END:
             break
         yield item
     t.join()
     if err:
         raise err[0]
+
+
+def _count_staged(r: int, arrays) -> None:
+    """The feed's counters, for one batch staged."""
+    if utils.recording():
+        utils.count("feed.batches")
+        utils.count("feed.rows", r)
+        utils.count("feed.staged_bytes", sum(np.asarray(a).nbytes
+                                             for a in arrays))
 
 
 def device_batches(batches, device: torch.device, pad_to: int, w32: int,
@@ -218,13 +250,14 @@ def device_batches(batches, device: torch.device, pad_to: int, w32: int,
     def stage(item):
         r, packed, popcnt, lo, hi, pos_after, pats = item
         arrays = (packed, popcnt, lo, hi)
+        _count_staged(r, arrays)
         staged = ring.stage(*arrays) if ring else host_tensors(*arrays)
         return r, staged, pos_after, pats
 
     return ((r, ring.upload(staged, device) if ring else staged, pos_after,
              pats)
-            for r, staged, pos_after, pats in _prefetch(map(stage, batches),
-                                                        depth))
+            for r, staged, pos_after, pats in _prefetch(batches, depth,
+                                                        stage))
 
 
 def device_planes(feed, device: torch.device, rows: int, w32: int,
@@ -240,13 +273,14 @@ def device_planes(feed, device: torch.device, rows: int, w32: int,
 
     def stage(item):
         r, planes, pos_after = item
+        _count_staged(r, (planes,))
         staged = (ring.stage(planes) if ring else torch.from_numpy(
             np.array(planes, np.uint32).view(np.int32)))
         return r, staged, pos_after
 
     return ((r, ring.upload(staged, device)[0] if ring else staged,
              pos_after)
-            for r, staged, pos_after in _prefetch(map(stage, feed), depth))
+            for r, staged, pos_after in _prefetch(feed, depth, stage))
 
 
 def host_tensors(packed, popcnt, lo, hi):
@@ -278,6 +312,7 @@ class PinnedRing:
     prefetch queue of depth d, d + 2 buffers keep both threads busy.
     """
 
+    @utils.span("ring_alloc")
     def __init__(self, n_slots: int, specs):
         self._free: queue.Queue = queue.Queue()
         for _ in range(n_slots):
@@ -285,14 +320,19 @@ class PinnedRing:
 
     def stage(self, *arrays) -> _Slot:
         slot = self._free.get()
-        slot.event.synchronize()        # its last copy to the card is done
-        for dst, a in zip(slot.tensors, arrays):
-            a = np.asarray(a)
-            if a.dtype == np.uint32:
-                a = a.view(np.int32)
-            np.copyto(dst.numpy()[:len(a)], a)
+        if utils.recording() and not slot.event.query():
+            utils.count("ring.stalls")
+        with utils.span("ring_wait"):
+            slot.event.synchronize()    # its last copy to the card is done
+        with utils.span("ring_copy"):
+            for dst, a in zip(slot.tensors, arrays):
+                a = np.asarray(a)
+                if a.dtype == np.uint32:
+                    a = a.view(np.int32)
+                np.copyto(dst.numpy()[:len(a)], a)
         return slot
 
+    @utils.span("upload")
     def upload(self, slot: _Slot, device: torch.device):
         out = tuple(t.to(device, non_blocking=True) for t in slot.tensors)
         slot.event.record(torch.cuda.current_stream(device))

@@ -25,7 +25,7 @@ import numpy as np
 from ..core.table import KmersTableReader
 from ..ops.kinship import KinshipAccumulator
 from ..parallel import sharding as shard_mod
-from ..utils import drain, step_event
+from ..utils import drain, span, step_event
 from . import checkpoint as ckpt
 from . import feed as feed_mod
 
@@ -70,15 +70,18 @@ def accumulate_stream(acc: KinshipAccumulator, items, dev, *, batch_size: int,
             drain(inflight.popleft())
         batch_i += 1
         if checkpoint_path and batch_i % checkpoint_every == 0:
-            acc.flush()
-            ckpt.save_kinship_state(checkpoint_path, acc.total, acc.n_rows,
-                                    pos_after, stream=stream, meta=meta)
+            with span("checkpoint_save"):
+                acc.flush()
+                ckpt.save_kinship_state(checkpoint_path, acc.total,
+                                        acc.n_rows, pos_after,
+                                        stream=stream, meta=meta)
         if progress is not None:
             progress(r)
     while inflight:
         drain(inflight.popleft())
 
 
+@span("kinship_from_table", job=True)
 def kinship_from_table(table_base: str, *, device, maf: float = 0.05,
                        batch_size: int = 1 << 20, names_to_use=None,
                        checkpoint_path: str | None = None,
@@ -99,7 +102,9 @@ def kinship_from_table(table_base: str, *, device, maf: float = 0.05,
     one shard on `device`); every batch is cut into its row shards, each
     accumulated into its own partial (ops/kinship.KinshipAccumulator).
     Batches are staged on the first shard's device, whose kind `device`
-    must name."""
+    must name. Traced (utils.span), the job span `kinship_from_table`
+    holds the feed's spans, the accumulator's, `drain` and
+    `checkpoint_save`."""
     dev, mesh = shard_mod.home_device(mesh, device)
     reader = KmersTableReader(table_base, names_to_use=names_to_use)
     min_count = math.ceil(reader.n_used * maf)

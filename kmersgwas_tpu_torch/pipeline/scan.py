@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -36,7 +35,7 @@ from ..ops import scanstep as ss
 from ..ops import score as score_ops
 from ..ops import topk as topk_ops
 from ..parallel import sharding as shard_mod
-from ..utils import StageTimer, drain, step_event
+from ..utils import StageTimer, count, drain, span, step_event
 from . import checkpoint as ckpt
 from . import feed as feed_mod
 
@@ -82,16 +81,19 @@ class ScanResult:
     n_patterns: int | None = None   # unique presence/absence patterns
     pa_rows: object = field(default_factory=dict)  # RowLookup: row -> packed
                                     # uint64 PA words over the used columns
-    timings: dict = field(default_factory=dict)  # sub-stage seconds: stream
+    timings: dict = field(default_factory=dict)  # sub-stage seconds, the
+                                    # durations of associate's spans: stream
                                     # (feed+dispatch loop), finalize (state
-                                    # fetch + merge), fetch (winner rows)
+                                    # fetch + merge), fetch (winner rows),
+                                    # certify (the selection, certify_topk)
     certified: list | None = None   # certify_topk: per-column bool — True
                                     # = the selected set is PROVEN equal to
                                     # the exact-score top-k (certify_column)
     steps: dict = field(default_factory=dict)    # scan-step branch counts
                                     # (narrow/wide/fallback/flush; summed
                                     # over a mesh's shards) and per-batch
-                                    # host seconds (step_s)
+                                    # host seconds (step_s, the scan_step
+                                    # spans)
 
 
 # copy of kmersgwas_tpu.pipeline.scan.CERTIFY_BAND / CERTIFY_EPS
@@ -166,6 +168,7 @@ class _PatternCounter:
         return self._sorted
 
 
+@span("associate", job=True)
 def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
               pheno_names, *, kmer_len: int, device, n_top: int = 10001,
               maf: float = 0.05, mac: int = 5, batch_size: int = 2_000_000,
@@ -199,7 +202,14 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     result (rows, order, scores) is the single-device run's. Batches are
     staged on the first shard's device, whose kind `device` must name.
     Checkpoints hold the merged plain state, so they resume in either
-    package and under any mesh."""
+    package and under any mesh.
+
+    Traced (utils.span), the job span `associate` holds `associate_stream`
+    (the feed's spans, and per batch `scan_step`: the step's spans and
+    `drain`; `checkpoint_save`), `associate_finalize`, `associate_fetch`
+    (`associate_winners`, the winners' union; `fetch_rows`) and
+    `select_candidates`; `timings` and `steps["step_s"]` are their
+    durations."""
     dev, mesh = shard_mod.home_device(mesh, device)
     n_devices = mesh.size
     reader = KmersTableReader(table_base, names_to_use=pheno_accessions)
@@ -269,53 +279,58 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
         return _merged_to_topk(shard_mod.finalize_sharded_buffered(states),
                                p, k_eff)
     timer = StageTimer("scan", "kmers", quiet=progress is not None)
-    t_stream = time.perf_counter()
-    next_pos = start_row
-    batch_i = 0
-    inflight: deque = deque()
-    for r, batch, pos_after, pats in batches:
-        t_step = time.perf_counter()
-        n_tested += r
-        if pats is not None:
-            patterns.add(pats)
-        step_fn(states, *shard_mod.shard_batch(mesh, batch), yp_s, ysum_s)
-        inflight.append([step_event(d) for d in mesh.distinct()])
-        if len(inflight) > _INFLIGHT:
+    with span("associate_stream") as stream_span:
+        next_pos = start_row
+        batch_i = 0
+        inflight: deque = deque()
+        for r, batch, pos_after, pats in batches:
+            with span("scan_step") as step_span:
+                n_tested += r
+                if pats is not None:
+                    patterns.add(pats)
+                step_fn(states, *shard_mod.shard_batch(mesh, batch), yp_s,
+                        ysum_s)
+                inflight.append([step_event(d) for d in mesh.distinct()])
+                if len(inflight) > _INFLIGHT:
+                    drain(inflight.popleft())
+            steps["step_s"].append(step_span.seconds)
+            batch_i += 1
+            next_pos = pos_after
+            if checkpoint_path and batch_i % checkpoint_every == 0:
+                with span("checkpoint_save"):
+                    ckpt.save_scan_state(checkpoint_path, plain_state(),
+                                         next_pos, n_tested,
+                                         stream=stream_tag, meta=ckpt_meta)
+            timer.add(r)
+            if progress is not None:
+                progress(r)
+        while inflight:
             drain(inflight.popleft())
-        steps["step_s"].append(time.perf_counter() - t_step)
-        batch_i += 1
-        next_pos = pos_after
-        if checkpoint_path and batch_i % checkpoint_every == 0:
-            ckpt.save_scan_state(checkpoint_path, plain_state(), next_pos,
-                                 n_tested, stream=stream_tag, meta=ckpt_meta)
-        timer.add(r)
-        if progress is not None:
-            progress(r)
-    while inflight:
-        drain(inflight.popleft())
-    timer.done()
-    timings["stream"] = time.perf_counter() - t_stream
+        timer.done()
+    timings["stream"] = stream_span.seconds
 
-    t_fin = time.perf_counter()
-    per_pheno = shard_mod.finalize_sharded_buffered(states)
-    timings["finalize"] = time.perf_counter() - t_fin
+    with span("associate_finalize") as fin_span:
+        per_pheno = shard_mod.finalize_sharded_buffered(states)
+    timings["finalize"] = fin_span.seconds
 
     # resolve winner rows -> k-mer codes + packed PA: chunked-run reads from
     # the dtable (pre-squeezed) when present, else the raw table (pass 2)
-    t_fetch = time.perf_counter()
-    all_rows = np.unique(np.concatenate([rw for _, rw in per_pheno])
-                         ) if per_pheno and any(len(rw) for _, rw in per_pheno) else np.empty(0, np.int64)
-    kmer_of_row, pa_of_row = fetch_rows(reader, all_rows.astype(np.int64),
-                                        dt=dt)
-    timings["fetch"] = time.perf_counter() - t_fetch
+    with span("associate_fetch") as fetch_span:
+        with span("associate_winners"):
+            all_rows = (np.unique(np.concatenate([rw for _, rw in per_pheno]))
+                        if any(len(rw) for _, rw in per_pheno)
+                        else np.empty(0, np.int64))
+        kmer_of_row, pa_of_row = fetch_rows(reader,
+                                            all_rows.astype(np.int64), dt=dt)
+    timings["fetch"] = fetch_span.seconds
 
     names = list(pheno_names)
-    t_cert = time.perf_counter()
-    scores_out, rows_out, kmers_out, certified = select_candidates(
-        per_pheno, kmer_of_row, pa_of_row, pheno_values, n_used, n_top,
-        first_phenotype_top, certify_topk)
+    with span("select_candidates") as sel_span:
+        scores_out, rows_out, kmers_out, certified = select_candidates(
+            per_pheno, kmer_of_row, pa_of_row, pheno_values, n_used, n_top,
+            first_phenotype_top, certify_topk)
     if certify_topk:
-        timings["certify"] = time.perf_counter() - t_cert
+        timings["certify"] = sel_span.seconds
 
     return ScanResult(names=names, scores=scores_out, rows=rows_out,
                       kmers=kmers_out, n_tested=n_tested,
@@ -480,7 +495,8 @@ def _pread_gather(path: str, base_offset: int, row_bytes: int,
     return out
 
 
-# copy of kmersgwas_tpu.pipeline.scan.fetch_rows
+# copy of kmersgwas_tpu.pipeline.scan.fetch_rows, traced
+@span("fetch_rows")
 def fetch_rows(reader: KmersTableReader, rows: np.ndarray, dt=None):
     """Fetch winner table rows -> (RowLookup kmers, RowLookup packed-PA).
 
@@ -491,9 +507,13 @@ def fetch_rows(reader: KmersTableReader, rows: np.ndarray, dt=None):
     dt: optional core.dtable.DTableReader already holding the same
     accession subset — winners are then resolved from the dtable's
     pre-squeezed planes (no raw-table reads, no squeeze work), keyed back
-    through its src_rows section."""
+    through its src_rows section.
+
+    Traced: the span `fetch_rows`; the counters `fetch.rows` (rows asked
+    for) and `fetch.dtable` (of them, rows read from the dtable)."""
     rows = np.asarray(rows, np.int64)
     n64 = (reader.n_used + 63) // 64
+    count("fetch.rows", len(rows))
     if len(rows) == 0:
         empty = RowLookup(rows, np.empty((0, n64), "<u8"))
         return RowLookup(rows, np.empty(0, np.uint64)), empty
@@ -506,6 +526,7 @@ def fetch_rows(reader: KmersTableReader, rows: np.ndarray, dt=None):
         idx = np.searchsorted(src, rows)
         if (idx < len(src)).all() and \
                 (np.asarray(src[np.minimum(idx, len(src) - 1)]) == rows).all():
+            count("fetch.dtable", len(rows))
             kmers = _pread_gather(dt.path, dt.kmers.offset, 8,
                                   idx).view("<u8")[:, 0]
             w32 = dt.hdr.w32

@@ -461,6 +461,45 @@ def test_associate_on_card_equals_cpu(cuda, tmp_path):
         np.testing.assert_array_equal(out[0].scores[j], out[1].scores[j])
 
 
+def test_traced_table_jobs_on_card_name_the_pinned_ring(cuda, tmp_path):
+    """associate and kinship_from_table over a dtable on the card under
+    utils.tracing(): every span under the job, the pinned ring's spans
+    (ring_alloc and upload on the main thread, ring_wait and ring_copy
+    once a batch on the prefetch thread) and the bytes it staged."""
+    from kmersgwas_tpu_torch import utils
+    from kmersgwas_tpu_torch.pipeline import kinship as km
+    from kmersgwas_tpu_torch.pipeline import scan
+    rng = np.random.default_rng(9)
+    n, rows, kmer_len = 150, 40_000, 31
+    base, names = write_table(tmp_path, rng, n, rows, kmer_len)
+    y = np.round(rng.uniform(-8, 8, size=(n, 3)) * 8) / 8
+    calls = {
+        "associate": lambda: scan.associate(
+            base, names, y, list("abc"), kmer_len=kmer_len, n_top=8,
+            batch_size=4096, device="cuda",
+            dtable_cache=str(tmp_path / "s.dtable")),
+        "kinship_from_table": lambda: km.kinship_from_table(
+            base, device="cuda", maf=0.05, batch_size=4096,
+            dtable_cache=str(tmp_path / "k.dtable"))}
+    producer = {"feed_read", "feed_put", "ring_wait", "ring_copy"}
+    for job, call in calls.items():
+        call()                                  # builds the dtable
+        with utils.tracing():
+            call()
+        tr = utils.last_trace()
+        (root,) = tr.named(job)
+        assert {"ring_alloc", "upload", *producer} <= {s.name
+                                                       for s in tr.spans}
+        for s in tr.spans:
+            assert s.job == root.id, s
+            assert (s.thread != root.thread) == (s.name in producer), s
+        batches = tr.counters["feed.batches"]
+        assert batches >= 2 and len(tr.named("ring_alloc")) == 1
+        assert len(tr.named("ring_wait")) == len(tr.named("ring_copy")) \
+            == len(tr.named("upload")) == batches
+        assert tr.counters["feed.staged_bytes"] > 0
+
+
 def test_distributed_scan_on_card_equals_cpu_and_associate(cuda, tmp_path):
     """One process of the multi-process scan on the card: the same top-k
     as on the CPU and as `associate`, with K3 launched on every batch."""

@@ -186,10 +186,12 @@ def test_flush_merge_picks_a_tier_per_column(monkeypatch):
 
 
 def test_fallback_pieces_run_in_named_profiler_ranges():
-    """A fallback step's pieces (K2's call, top_k_from_bmax, _flush_merge)
-    show in torch.profiler as ranges kgt::<function>, top_k_from_bmax
-    inside _flush_merge: the names chip_smoke.py splits a fallback by. The
-    first batch always falls back (the threshold starts at -inf)."""
+    """A fallback step's pieces show in torch.profiler as ranges
+    kgt::<name>, each inside the one that calls it: the step, its halves
+    (K1's call inside the first), the flags' copy, and inside
+    compact_apply K2's call and _flush_merge with top_k_from_bmax inside
+    it, the names chip_smoke.py splits a fallback by. The first batch
+    always falls back (the threshold starts at -inf)."""
     from torch.profiler import ProfilerActivity, profile
     y, batches = stream(33, p=3, n_batches=1)
     yp, ysum = (torch.from_numpy(a) for a in _prep(y))
@@ -202,11 +204,21 @@ def test_fallback_pieces_run_in_named_profiler_ranges():
                                    counts=counts)
     assert counts == {"fallback": 1}, counts
     events = {e.name: e for e in prof.events() if e.name.startswith("kgt::")}
-    assert set(events) == {"kgt::score_batch_t_bmax", "kgt::top_k_from_bmax",
-                           "kgt::_flush_merge"}
-    inner, outer = (events[f"kgt::{n}"].time_range
-                    for n in ("top_k_from_bmax", "_flush_merge"))
-    assert outer.start <= inner.start and inner.end <= outer.end
+    parent = {"compact_candidates": "scan_step_compact",
+              "score_batch_t_topw": "compact_candidates",
+              "step_flags": "scan_step_compact",
+              "compact_apply": "scan_step_compact",
+              "score_batch_t_bmax": "compact_apply",
+              "_flush_merge": "compact_apply",
+              "top_k_from_bmax": "_flush_merge"}
+    assert set(events) == {f"kgt::{n}" for n in
+                           {"scan_step_compact", *parent}}
+    for inner, outer in parent.items():
+        i, o = (events[f"kgt::{n}"].time_range for n in (inner, outer))
+        assert o.start <= i.start and i.end <= o.end, (inner, outer)
+    order = [events[f"kgt::{n}"].time_range for n in
+             ("compact_candidates", "step_flags", "compact_apply")]
+    assert all(a.end <= b.start for a, b in zip(order, order[1:]))
 
 
 @pytest.mark.parametrize("split", [10, 20])
