@@ -453,15 +453,13 @@ def _add_associate_mp(sub):
         if a.process_id == 0:     # every process holds the result: one writer
             reader = KmersTableReader(a.kmers_table,
                                       names_to_use=pheno.accessions)
-            all_rows = np.unique(np.concatenate(
-                [rw for _, rw in per_pheno])) if per_pheno else np.empty(0)
-            kmer_of_row, pa_of_row = scan_mod.fetch_rows(
-                reader, all_rows.astype(np.int64))
+            all_rows, slots = scan_mod.resolve_winners(per_pheno, a.device)
+            kmer_of_row, pa_of_row = scan_mod.fetch_rows(reader, all_rows)
             base = f"{a.output_dir}/{a.base_name}"
             kmers_list, scores_list, rows_list = [], [], []
             for j in range(len(pheno.names)):
                 sc, rw = per_pheno[j]
-                kk = np.asarray(kmer_of_row.take(rw), np.uint64)
+                kk = np.asarray(kmer_of_row.values[slots[j]], np.uint64)
                 kmers_list.append(kk)
                 scores_list.append(np.asarray(sc, np.float64))
                 rows_list.append(np.asarray(rw, np.int64))

@@ -584,16 +584,13 @@ def run_distributed_gwas(cfg: GWASConfig):
     # of single-process run_gwas
     t0 = time.perf_counter()
     reader = KmersTableReader(cfg.kmers_table, names_to_use=used)
-    all_rows = (np.unique(np.concatenate([rw for _, rw in per_pheno]))
-                if any(len(rw) for _, rw in per_pheno)
-                else np.empty(0, np.int64))
-    kmer_of_row, pa_of_row = scan_mod.fetch_rows(reader,
-                                                 all_rows.astype(np.int64))
+    all_rows, slots = scan_mod.resolve_winners(per_pheno, dev)
+    kmer_of_row, pa_of_row = scan_mod.fetch_rows(reader, all_rows)
     timings = {"fetch": time.perf_counter() - t0}
     t0 = time.perf_counter()
     scores, rows, kmers, certified = scan_mod.select_candidates(
-        per_pheno, kmer_of_row, pa_of_row, tr.transformed, reader.n_used,
-        cfg.n_kmers, first, cfg.certify_topk)
+        per_pheno, slots, kmer_of_row, pa_of_row, tr.transformed,
+        reader.n_used, cfg.n_kmers, first, cfg.certify_topk)
     if cfg.certify_topk:
         timings["certify"] = time.perf_counter() - t0
     result = scan_mod.ScanResult(

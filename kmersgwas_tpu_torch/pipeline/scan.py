@@ -25,6 +25,7 @@ from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .. import native
 from ..core import codec, formats
@@ -207,9 +208,9 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     Traced (utils.span), the job span `associate` holds `associate_stream`
     (the feed's spans, and per batch `scan_step`: the step's spans and
     `drain`; `checkpoint_save`), `associate_finalize`, `associate_fetch`
-    (`associate_winners`, the winners' union; `fetch_rows`) and
-    `select_candidates`; `timings` and `steps["step_s"]` are their
-    durations."""
+    (`associate_winners`, the winners' union by resolve_winners;
+    `fetch_rows`) and `select_candidates`; `timings` and `steps["step_s"]`
+    are their durations."""
     dev, mesh = shard_mod.home_device(mesh, device)
     n_devices = mesh.size
     reader = KmersTableReader(table_base, names_to_use=pheno_accessions)
@@ -317,18 +318,15 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     # the dtable (pre-squeezed) when present, else the raw table (pass 2)
     with span("associate_fetch") as fetch_span:
         with span("associate_winners"):
-            all_rows = (np.unique(np.concatenate([rw for _, rw in per_pheno]))
-                        if any(len(rw) for _, rw in per_pheno)
-                        else np.empty(0, np.int64))
-        kmer_of_row, pa_of_row = fetch_rows(reader,
-                                            all_rows.astype(np.int64), dt=dt)
+            all_rows, slots = resolve_winners(per_pheno, dev)
+        kmer_of_row, pa_of_row = fetch_rows(reader, all_rows, dt=dt)
     timings["fetch"] = fetch_span.seconds
 
     names = list(pheno_names)
     with span("select_candidates") as sel_span:
         scores_out, rows_out, kmers_out, certified = select_candidates(
-            per_pheno, kmer_of_row, pa_of_row, pheno_values, n_used, n_top,
-            first_phenotype_top, certify_topk)
+            per_pheno, slots, kmer_of_row, pa_of_row, pheno_values, n_used,
+            n_top, first_phenotype_top, certify_topk)
     if certify_topk:
         timings["certify"] = sel_span.seconds
 
@@ -339,13 +337,38 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
                       certified=certified, steps=steps)
 
 
-def select_candidates(per_pheno, kmer_of_row, pa_of_row, pheno_values,
-                      n_used: int, n_top: int,
+def resolve_winners(per_pheno, device):
+    """A finished scan's candidates -> (all_rows, slots): all_rows the
+    sorted distinct rows of every column (int64, as np.unique gives them),
+    slots[j] the int64 position in all_rows of each of column j's rows, in
+    the column's order. One sort on `device` gives both (torch.unique with
+    its inverse; on an H100 a radix sort of the scan's ~1 M candidates,
+    4 ms with both copies), so selection gathers by slot and the host
+    neither sorts nor searches. `associate`, `run_distributed_gwas` and
+    `associate-mp` all resolve through here.
+
+    Traced: the counters `winners.candidates` (the rows in) and
+    `winners.rows` (the distinct rows out)."""
+    cols = [np.asarray(rw, np.int64) for _, rw in per_pheno]
+    cat = np.concatenate([np.empty(0, np.int64), *cols])
+    count("winners.candidates", len(cat))
+    rows, inverse = torch.unique(torch.from_numpy(cat).to(device),
+                                 sorted=True, return_inverse=True)
+    all_rows, inverse = rows.cpu().numpy(), inverse.cpu().numpy()
+    count("winners.rows", len(all_rows))
+    ends = np.cumsum([0] + [len(c) for c in cols])
+    return all_rows, [inverse[a:b] for a, b in zip(ends, ends[1:])]
+
+
+def select_candidates(per_pheno, slots, kmer_of_row, pa_of_row,
+                      pheno_values, n_used: int, n_top: int,
                       first_phenotype_top: int | None,
                       certify_topk: bool):
     """A finished scan's exact top-k candidates per column -> (scores, rows,
     k-mer codes, certified) of the top `n_top` (`first_phenotype_top` in
-    column 0). certify_topk: the candidates carry CERTIFY_BAND extra slots;
+    column 0). slots: resolve_winners' positions of each column's rows in
+    the fetched rows, by which their codes and presence words are
+    gathered. certify_topk: the candidates carry CERTIFY_BAND extra slots;
     each is re-scored exactly in f64, the columns are re-ranked by (exact
     score desc, row asc) and each is certified (certify_column); certified
     is None otherwise. `associate` and `run_distributed_gwas` both select
@@ -357,10 +380,10 @@ def select_candidates(per_pheno, kmer_of_row, pa_of_row, pheno_values,
         # re-accumulated in f64
         yv = np.asarray(pheno_values, np.float32).astype(np.float64)
         ysums = yv.sum(axis=0)
-    for j, (sc, rw) in enumerate(per_pheno):
+    for j, ((sc, rw), slot) in enumerate(zip(per_pheno, slots)):
         cap = first_phenotype_top if (j == 0 and first_phenotype_top) else n_top
         if certify_topk:
-            pa = np.asarray(pa_of_row.take(rw))
+            pa = pa_of_row.values[slot]
             bits = np.unpackbits(np.ascontiguousarray(pa).view(np.uint8),
                                  axis=1, bitorder="little"
                                  )[:, :n_used].astype(np.float64)
@@ -372,12 +395,12 @@ def select_candidates(per_pheno, kmer_of_row, pa_of_row, pheno_values,
                 s_ex = np.where(denom > 0, r_ * r_ / denom, 0.0)
             order, cert = certify_column(sc, rw, s_ex, cap)
             certified.append(bool(cert))
-            sc, rw = s_ex[order], np.asarray(rw)[order]
+            sc, rw, slot = s_ex[order], np.asarray(rw)[order], slot[order]
         else:
-            sc, rw = sc[:cap], rw[:cap]
+            sc, rw, slot = sc[:cap], rw[:cap], slot[:cap]
         scores_out.append(sc)
         rows_out.append(rw)
-        kmers_out.append(np.asarray(kmer_of_row.take(rw), dtype=np.uint64))
+        kmers_out.append(np.asarray(kmer_of_row.values[slot], dtype=np.uint64))
     return scores_out, rows_out, kmers_out, certified
 
 

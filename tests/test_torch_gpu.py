@@ -461,6 +461,28 @@ def test_associate_on_card_equals_cpu(cuda, tmp_path):
         np.testing.assert_array_equal(out[0].scores[j], out[1].scores[j])
 
 
+@pytest.mark.parametrize("lengths", [[10001] * 101, [10001, 0, 5], [0, 0]],
+                         ids=["scan", "an_empty_column", "all_empty"])
+def test_winners_resolved_on_card_equal_numpy(cuda, lengths):
+    """resolve_winners on the card: the rows np.unique gives and, per
+    column, the positions RowLookup.take finds; at the scan's 101 x 10,001
+    candidates (rows repeated across columns) and with empty columns."""
+    from kmersgwas_tpu_torch.pipeline import scan
+    rng = np.random.default_rng(len(lengths))
+    per_pheno = [(np.zeros(m), rng.choice(1 << 21, size=m, replace=False))
+                 for m in lengths]
+    all_rows, slots = scan.resolve_winners(per_pheno, cuda)
+    cols = [rw for _, rw in per_pheno]
+    want = np.unique(np.concatenate(cols))
+    assert all_rows.dtype == np.int64
+    np.testing.assert_array_equal(all_rows, want)
+    positions = scan.RowLookup(want, np.arange(len(want)))
+    assert len(slots) == len(cols)
+    for slot, rw in zip(slots, cols):
+        assert slot.dtype == np.int64
+        np.testing.assert_array_equal(slot, positions.take(rw))
+
+
 def test_traced_table_jobs_on_card_name_the_pinned_ring(cuda, tmp_path):
     """associate and kinship_from_table over a dtable on the card under
     utils.tracing(): every span under the job, the pinned ring's spans

@@ -187,3 +187,91 @@ def test_associate_refuses_mesh_and_missing_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         pscan.associate(pop["base"], pop["names"], y, ["p"], device="cuda",
                         **KW)
+
+
+def select_by_lookup(per_pheno, kmer_of_row, pa_of_row, pheno_values,
+                     n_used, n_top, first_phenotype_top, certify_topk):
+    """select_candidates as it was before slots: every column's rows looked
+    up in the fetched rows by RowLookup.take (a binary search a row)."""
+    scores_out, rows_out, kmers_out = [], [], []
+    certified = [] if certify_topk else None
+    yv = np.asarray(pheno_values, np.float32).astype(np.float64)
+    ysums = yv.sum(axis=0)
+    for j, (sc, rw) in enumerate(per_pheno):
+        cap = first_phenotype_top if (j == 0 and first_phenotype_top) else n_top
+        if certify_topk:
+            pa = np.asarray(pa_of_row.take(rw))
+            bits = np.unpackbits(np.ascontiguousarray(pa).view(np.uint8),
+                                 axis=1, bitorder="little"
+                                 )[:, :n_used].astype(np.float64)
+            n1 = bits.sum(axis=1)
+            r_ = n_used * (bits @ yv[:, j]) - n1 * ysums[j]
+            denom = n_used * n1 - n1 * n1
+            with np.errstate(divide="ignore", invalid="ignore"):
+                s_ex = np.where(denom > 0, r_ * r_ / denom, 0.0)
+            order, cert = pscan.certify_column(sc, rw, s_ex, cap)
+            certified.append(bool(cert))
+            sc, rw = s_ex[order], np.asarray(rw)[order]
+        else:
+            sc, rw = sc[:cap], rw[:cap]
+        scores_out.append(sc)
+        rows_out.append(rw)
+        kmers_out.append(np.asarray(kmer_of_row.take(rw), dtype=np.uint64))
+    return scores_out, rows_out, kmers_out, certified
+
+
+def scan_candidates(seed, lengths, pool, n_used=70):
+    """Per column (scores descending, distinct int64 rows) as a finished
+    scan hands them over, each column's rows drawn from range(pool), so
+    rows repeat across columns; the fetched rows' codes and packed
+    presence words; phenotypes."""
+    rng = np.random.default_rng(seed)
+    per_pheno = [(np.sort(rng.normal(size=m))[::-1].astype(np.float64),
+                  rng.choice(pool, size=m, replace=False).astype(np.int64))
+                 for m in lengths]
+    rows = np.unique(np.concatenate([rw for _, rw in per_pheno]))
+    n64 = (n_used + 63) // 64
+    pa = rng.integers(0, 2**63, size=(len(rows), n64), dtype=np.int64)
+    pa[:, -1] &= (1 << (n_used - 64 * (n64 - 1))) - 1
+    kmer_of_row = pscan.RowLookup(rows, rng.integers(
+        0, 2**62, size=len(rows), dtype=np.int64).astype(np.uint64))
+    pa_of_row = pscan.RowLookup(rows, pa.view(np.uint64))
+    y = dyadic(seed, n_used, len(lengths))
+    return per_pheno, kmer_of_row, pa_of_row, y
+
+
+@pytest.mark.parametrize("lengths,n_top,first,certify", [
+    ([40, 40, 40, 40, 40], 30, None, False),      # rows repeated across columns
+    ([40, 0, 40, 25], 30, None, False),           # an empty column
+    ([0, 0, 0], 30, None, False),                 # every column empty
+    ([60, 40, 40], 20, 50, False),                # first_phenotype_top
+    ([40, 40, 0, 33], 25, None, True),            # certify_topk
+], ids=["repeated", "empty_column", "all_empty", "first_top", "certify"])
+def test_winners_resolved_by_slot_equal_the_lookup(lengths, n_top, first,
+                                                    certify):
+    """resolve_winners' rows are np.unique's and its slots RowLookup.take's
+    positions; select_candidates gathering by slot gives, byte for byte,
+    what looking every row up gave."""
+    per_pheno, kmer_of_row, pa_of_row, y = scan_candidates(
+        len(lengths) + n_top, lengths, pool=90)
+    all_rows, slots = pscan.resolve_winners(per_pheno, "cpu")
+    cols = [rw for _, rw in per_pheno]
+    want = np.unique(np.concatenate(cols)) if sum(lengths) else np.empty(
+        0, np.int64)
+    assert all_rows.dtype == np.int64
+    np.testing.assert_array_equal(all_rows, want)
+    assert len(slots) == len(cols)
+    positions = pscan.RowLookup(want, np.arange(len(want), dtype=np.int64))
+    for slot, rw in zip(slots, cols):
+        assert slot.dtype == np.int64
+        np.testing.assert_array_equal(slot, positions.take(rw))
+    args = (kmer_of_row, pa_of_row, y, 70, n_top, first, certify)
+    got = pscan.select_candidates(per_pheno, slots, *args)
+    ref = select_by_lookup(per_pheno, *args)
+    assert got[3] == ref[3]
+    assert (got[3] is not None) == certify
+    for got_cols, ref_cols in zip(got[:3], ref[:3]):
+        assert len(got_cols) == len(ref_cols) == len(lengths)
+        for a, b in zip(got_cols, ref_cols):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert a.tobytes() == b.tobytes()

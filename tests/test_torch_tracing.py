@@ -80,12 +80,19 @@ def check_tree(trace, job: str, parents: dict):
     return root
 
 
-def test_associate_spans_and_counters(tmp_path):
+def test_associate_spans_and_counters(tmp_path, monkeypatch):
     pop = build_population(tmp_path)
     y = dyadic(1, len(pop["names"]), 4)
     kw = dict(kmer_len=K, n_top=25, maf=0.05, mac=2, batch_size=97,
               device="cpu", dtable_cache=str(tmp_path / "pop.dtable"))
     pscan.associate(pop["base"], pop["names"], y, list("abcd"), **kw)
+    counted_in = {}     # the span open where pipeline.scan counted
+
+    def count(name, n=1):
+        st = utils.RECORDER.stack()
+        counted_in[name] = st[-1].name if st else None
+        utils.count(name, n)
+    monkeypatch.setattr(pscan, "count", count)
     with utils.tracing():
         res = pscan.associate(pop["base"], pop["names"], y, list("abcd"),
                               checkpoint_path=str(tmp_path / "ck"),
@@ -100,6 +107,10 @@ def test_associate_spans_and_counters(tmp_path):
     winners = len(np.unique(np.concatenate(res.rows)))
     c = tr.counters
     assert c["fetch.rows"] == winners == len(res.pa_rows)
+    assert c["winners.rows"] == winners
+    assert c["winners.candidates"] == sum(len(r) for r in res.rows)
+    assert counted_in["winners.candidates"] == "associate_winners"
+    assert counted_in["winners.rows"] == "associate_winners"
     assert c.get("fetch.dtable", 0) == (
         0 if table_mod._native_squeeze_available() else winners)
     assert c["feed.batches"] == len(res.steps["step_s"])
