@@ -17,6 +17,9 @@ order, np.argsort(-scores, kind="stable") (on equal scores the lower SNP
 index first), then row-sorted like get_rows_sorted_indices
 (best_associations_heap.cpp:135-147). Selected SNPs are re-exported from
 the original bed/bim bytes (snps_multiple_databases.cpp:246-286).
+
+Traced (utils.span): `snp_scores` (the scores of every column) and
+`snp_topn` (the per-column sort and the indices to the host).
 """
 from __future__ import annotations
 
@@ -27,13 +30,14 @@ import torch
 
 from ..core import formats
 from ..ops.bitplanes import unpack_bits
-from ..utils import require_device
+from ..utils import recording, require_device, span
 from .bed import SNPPlanes, load_bed_planes
 
 # elements of one (SNPs, n_pad) float32 block of unpacked doses
 _SCORE_BLOCK_ELEMS = 1 << 26
 
 
+@span("snp_scores")
 def snp_scores(presence, het, nonmiss, s_gi, s_gi2, total, y_padded, *,
                min_count: float) -> torch.Tensor:
     """(M, W32) int32 planes + (N_pad, P) float32 phenotypes -> (M, P)
@@ -56,6 +60,8 @@ def snp_scores(presence, het, nonmiss, s_gi, s_gi2, total, y_padded, *,
         score = torch.where(denom > 0, r * r / denom, 0.0)
         ok = (sg >= min_count) & ((n - sg) >= min_count)
         out[s:e] = torch.where(ok, score, 0.0)
+    if out.is_cuda and recording():
+        torch.cuda.synchronize(out.device)  # the span holds the device's work
     return out
 
 
@@ -72,10 +78,11 @@ def most_associated_snps(planes: SNPPlanes, phenotypes: np.ndarray,
     scores = snp_scores(planes.presence, planes.het, planes.nonmiss,
                         planes.s_gi, planes.s_gi2, planes.total, y,
                         min_count=min_count)
-    k = min(n_best, scores.shape[0])
-    top = torch.sort(scores.T, dim=1, descending=True,
-                     stable=True).indices[:, :k]
-    idx = torch.sort(top, dim=1).values.cpu().numpy()
+    with span("snp_topn"):
+        k = min(n_best, scores.shape[0])
+        top = torch.sort(scores.T, dim=1, descending=True,
+                         stable=True).indices[:, :k]
+        idx = torch.sort(top, dim=1).values.cpu().numpy()
     return list(idx), scores
 
 

@@ -28,7 +28,7 @@ import torch
 
 from ..core import formats
 from ..core.table import LANE_PAD
-from ..utils import require_device
+from ..utils import count, recording, require_device, span
 
 # SNPs a chunk: 2^16 x 1008 samples is 64 MB of dubits on the device
 BED_CHUNK = 1 << 16
@@ -78,6 +78,7 @@ def sample_order(fam_names, samples_to_use):
     return order, len(order)
 
 
+@span("snp_load_planes")
 def load_bed_planes(base_name: str, samples_to_use=None, *,
                     device="cuda", chunk: int = BED_CHUNK) -> SNPPlanes:
     dev = require_device(device)
@@ -88,16 +89,26 @@ def load_bed_planes(base_name: str, samples_to_use=None, *,
     planes = [torch.empty((m, n_pad // 32), dtype=torch.int32, device=dev)
               for _ in range(3)]
     counts = torch.empty((3, m), dtype=torch.int64, device=dev)
-    for s, rows in formats.iter_bed_rows(base_name, chunk):
-        d = decode_dubits(torch.from_numpy(rows).to(dev),
-                          len(fam_names))[:, cols]
-        e = s + d.shape[0]
-        for i, bits in enumerate((d == 3, d != 1, d == 2)):
-            planes[i][s:e] = pack_rows(bits, n_pad)
-            counts[i, s:e] = bits.sum(1)
+    chunks = formats.iter_bed_rows(base_name, chunk)
+    for _ in range(-(-m // chunk)):
+        with span("bed_read"):
+            s, rows = next(chunks)
+        with span("bed_decode"):
+            d = decode_dubits(torch.from_numpy(rows).to(dev),
+                              len(fam_names))[:, cols]
+            e = s + d.shape[0]
+            for i, bits in enumerate((d == 3, d != 1, d == 2)):
+                planes[i][s:e] = pack_rows(bits, n_pad)
+                counts[i, s:e] = bits.sum(1)
+        count("snp.chunks")
+        count("snp.bed_bytes", rows.nbytes)
+    count("snp.rows", m)
     hom, obs, het = counts.to(torch.float64)
-    return SNPPlanes(
+    out = SNPPlanes(
         presence=planes[0], nonmiss=planes[1], het=planes[2],
         s_gi=(hom + 0.5 * het).to(torch.float32),
         s_gi2=(hom + 0.25 * het).to(torch.float32),
         total=obs.to(torch.float32), n_samples=n, n_pad=n_pad)
+    if dev.type == "cuda" and recording():
+        torch.cuda.synchronize(dev)     # the span holds the device's work
+    return out

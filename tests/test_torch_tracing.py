@@ -1,6 +1,6 @@
 """The port's tracing (kmersgwas_tpu_torch.utils span / count / tracing):
-the spans of `associate` and `kinship_from_table` with their parents, job
-ids and threads, the durations the results report, the counters, one clock
+the spans of `associate`, `kinship_from_table` and the SNP prefilter with
+their parents, job ids and threads, the durations the results report, the counters, one clock
 with torch.profiler, no profiler range while tracing is off, and the
 Chrome-trace file of `tracing(path)` and the CLI's `--trace`."""
 import json
@@ -18,8 +18,11 @@ from kmersgwas_tpu_torch.ops import scanstep
 from kmersgwas_tpu_torch.pipeline import feed
 from kmersgwas_tpu_torch.pipeline import kinship as km
 from kmersgwas_tpu_torch.pipeline import scan as pscan
+from kmersgwas_tpu_torch.snps import assoc as passoc
+from kmersgwas_tpu_torch.snps import bed as pbed
 
 from test_pipeline import K, build_population
+from test_torch_snp_reference import make_case
 from test_torch_scan import dyadic
 from test_torch_scanstep import MIN_COUNT, N, _prep, port_batch, stream
 
@@ -58,6 +61,10 @@ KINSHIP_PARENTS = {
     "kinship_finalize": {"kinship_from_table"},
 }
 PRODUCER = {"feed_read", "feed_put", "ring_wait", "ring_copy"}
+# the SNP prefilter's spans and their parents (None: opened outside any)
+SNP_PARENTS = {"snp_load_planes": None, "bed_read": "snp_load_planes",
+               "bed_decode": "snp_load_planes", "snp_scores": None,
+               "snp_topn": None}
 
 
 def check_tree(trace, job: str, parents: dict):
@@ -138,6 +145,55 @@ def test_kinship_spans_and_counters(tmp_path):
     assert saves == batches // 2
     assert c["kinship.flushes"] == saves + (batches % 2)
     assert c["feed.rows"] == DTableReader(kw["dtable_cache"]).hdr.n_rows
+
+
+def _snp_prefilter(tmp_path, chunk):
+    """The prefilter of a 517-SNP bed over a 45-accession fam (40 used) ->
+    (M, chunks, the bed's body bytes)."""
+    base, used, y = make_case(tmp_path, 7, m=517, n_fam=45, n_used=40,
+                              shuffle=True, chunk=chunk, het=0.05,
+                              missing=0.02)
+    planes = pbed.load_bed_planes(base, used, device="cpu", chunk=chunk)
+    passoc.most_associated_snps(planes, y, 25, 0.05, 5)
+    return 517, -(-517 // chunk), 517 * (-(-45 // 4))
+
+
+def test_snp_prefilter_spans_and_counters(tmp_path):
+    """`snp_load_planes` holds one `bed_read` and one `bed_decode` a chunk,
+    in that order; `snp_scores` and `snp_topn` follow it; the counters are
+    the bed's SNPs, chunks and body bytes."""
+    with utils.tracing():
+        m, chunks, body = _snp_prefilter(tmp_path, chunk=50)
+    tr = utils.last_trace()
+    by_id = {s.id: s for s in tr.spans}
+    assert {s.name for s in tr.spans} == set(SNP_PARENTS)
+    for s in tr.spans:
+        parent = by_id[s.parent].name if s.parent else None
+        assert parent == SNP_PARENTS[s.name], s
+        if s.parent:
+            p = by_id[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns, (s, p)
+    (load,) = tr.named("snp_load_planes")
+    inner = sorted((s for s in tr.spans if s.parent == load.id),
+                   key=lambda s: s.start_ns)
+    assert [s.name for s in inner] == ["bed_read", "bed_decode"] * chunks
+    (scores,) = tr.named("snp_scores")
+    (topn,) = tr.named("snp_topn")
+    assert load.end_ns <= scores.start_ns <= scores.end_ns <= topn.start_ns
+    assert tr.counters == {"snp.rows": m, "snp.chunks": chunks,
+                           "snp.bed_bytes": body}
+
+
+def test_snp_prefilter_untraced_records_nothing(tmp_path, monkeypatch):
+    """With tracing off the prefilter enters no profiler range and leaves
+    the recorder as it was."""
+    def refuse(*a, **k):
+        raise AssertionError("a profiler range entered with tracing off")
+    monkeypatch.setattr(utils, "_FastRange", refuse)
+    before = utils.last_trace()
+    assert not utils.recording()
+    _snp_prefilter(tmp_path, chunk=64)
+    assert utils.last_trace() == before
 
 
 def test_a_job_span_under_the_profiler_fills_the_recorder():
