@@ -1264,7 +1264,9 @@ def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
     must equal, scores and rows, a plain running top-k (plain scores, one
     stable sort per batch, earlier rows first on ties). Two windows of
     n_prof steps run back to back under torch.profiler: fallbacks from
-    batch FALLBACK_WINDOW on, and the last n_prof steps."""
+    batch FALLBACK_WINDOW on, and the last n_prof steps. Each step outside
+    them, and each window, is settled (ss.settle) before it is timed, so
+    a time and a branch are its own batches'."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from kmersgwas_tpu_torch.ops import scanstep as ss
@@ -1317,6 +1319,7 @@ def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
             t_prof = time.perf_counter()
             for args in batches:
                 ss.scan_step_compact(state, *args, yp, ysum, **kw)
+            ss.settle(state)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t_prof)
         for b, args in zip(bs, batches):
@@ -1339,6 +1342,7 @@ def phase_stream(mode="cand_w", n_batches=80, n_prof=5, rows=2_000_000,
         torch.cuda.synchronize()
         t_step = time.perf_counter()
         ss.scan_step_compact(state, *args, yp, ysum, **kw)
+        ss.settle(state)            # this batch's own branch and time
         torch.cuda.synchronize()
         kind = "fallback" if counts.get("fallback", 0) > before else "append"
         step_ms[kind].append(1e3 * (time.perf_counter() - t_step))

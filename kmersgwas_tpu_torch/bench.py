@@ -436,7 +436,7 @@ def main(n_windows: int = 30, steps_per_window: int = 16, n_ramp: int = 6,
         step = window(state, step)
         _sync(dev)
         win_s.append(time.perf_counter() - t0)
-    checksum = float(state.scores[:, 0].sum())
+    checksum = float(ss.settle(state).scores[:, 0].sum())
     if not np.isfinite(checksum):
         raise RuntimeError(f"checksum {checksum} is not finite")
 

@@ -13,12 +13,10 @@ one device, so its blocks have D = 1 (`distributed_state_*`).
 """
 from __future__ import annotations
 
-from dataclasses import fields, is_dataclass
-
 import numpy as np
 import torch
 
-from .ops.scanstep import BufferedTopKState
+from .ops.scanstep import STATE_FIELDS, BufferedTopKState, settle
 from .ops.topk import TopKState
 
 
@@ -49,9 +47,11 @@ def buffered_state_from_numpy(f, device) -> BufferedTopKState:
 
 
 def to_numpy(state) -> dict:
-    """A port TopKState or BufferedTopKState -> {field: numpy array}."""
-    items = ([(f.name, getattr(state, f.name)) for f in fields(state)]
-             if is_dataclass(state) else state._asdict().items())
+    """A port TopKState or BufferedTopKState (settled first) -> {field:
+    numpy array}."""
+    items = ([(name, getattr(settle(state), name)) for name in STATE_FIELDS]
+             if isinstance(state, BufferedTopKState)
+             else state._asdict().items())
     return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
                 else np.int32(v)) for k, v in items}
 
@@ -65,8 +65,8 @@ def distributed_state_from_numpy(blocks, device) -> BufferedTopKState:
         raise ValueError(f"the blocks hold the states of {d} devices; a "
                          "process of the port owns one")
     return buffered_state_from_numpy(
-        {f.name: np.asarray(blocks[f.name])[0]
-         for f in fields(BufferedTopKState)}, device)
+        {name: np.asarray(blocks[name])[0] for name in STATE_FIELDS},
+        device)
 
 
 def distributed_state_to_numpy(state: BufferedTopKState) -> dict:

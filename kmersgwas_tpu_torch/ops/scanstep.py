@@ -31,25 +31,60 @@ on the fallback's scores. The state is a mutable object and is updated IN
 PLACE (the buffer writes and the flushes replace or overwrite its
 tensors); callers that need an old state copy it first.
 
+`scan_step_compact` runs one batch deep: it queues batch i's candidate
+kernel and its flags' copy to the host, and only then applies batch i-1
+(waits for that batch's flags alone, then appends or falls back), so the
+card scores batch i while the host decides batch i-1. Batch i stays
+pending in the state (`BufferedTopKState.pending`) until the next step or
+`settle`, which every reader of a state calls first (`flush_buffered`
+does). Batch i's guards read the threshold as it stood when its kernel was
+queued, before batch i-1's apply. That is still exact: the threshold only
+rises (at a flush or a fallback), so a stale one is lower or equal, and
+every lane above the true threshold is among the lanes the stale guard
+covered; the narrow test `v[q] <= thresh` that holds for the stale one
+holds for the true one. A stale threshold can only cost a wider append or
+a fallback, never drop a row, and the final top-k is the one an apply
+right after every kernel gives. A step's `counts` are added when its apply
+runs.
+
 The step's pieces are spans (utils.span): torch.profiler ranges
 kgt::<name> while a profiler records, and the recorder's spans while
 tracing is on. `scan_step_compact` holds `compact_candidates` (with K1's
-`score_batch_t_topw` or K3's `score_batch_t_tilemax`), `step_flags` (the
-flags' copy to the host, the step's one sync) and `compact_apply`; a
-fallback adds `score_batch_t_bmax`, then `_flush_merge` with its
-`top_k_from_bmax` calls, inside `compact_apply` (chip_smoke.py's phase 4
-splits a fallback step's device time by the last three). With tracing
-off a span enters no profiler range.
+`score_batch_t_topw` or K3's `score_batch_t_tilemax`, and the flags'
+copy queued), then the previous batch's `step_flags` (the wait for its
+flags on the host, the step's one wait) and `compact_apply`; a fallback
+adds `score_batch_t_bmax`, then `_flush_merge` with its `top_k_from_bmax`
+calls, inside `compact_apply` (chip_smoke.py's phase 4 splits a fallback
+step's device time by the last three). `settle` runs the last two for a
+pending batch wherever it is called. With tracing off a span enters no
+profiler range.
+
+Counters (utils.count): `step.deferred`, applies run by a later step,
+with that step's candidate kernel already queued; `step.settled`, applies
+run by `settle`; `step.stale`, deferred applies that flushed the buffer or
+fell back, so rewrote the threshold that the queued kernel had already
+read.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
-from ..utils import span
+from ..utils import count, span, step_event
 from . import score as score_ops
 from . import topk as topk_ops
+
+
+@dataclass
+class PendingBatch:
+    """A batch whose candidate kernel is queued and whose append or
+    fallback has not run yet."""
+    cands: tuple            # compact_candidates' (v, g, q, flags)
+    flags: torch.Tensor     # (2, P) bool on the host (pinned on the card)
+    event: object           # CUDA event behind the flags' copy; None on CPU
+    batch: tuple            # packed, popcnt, row_lo, row_hi, y_padded, y_sum
+    kw: dict                # compact_apply's keywords, counts included
 
 
 @dataclass
@@ -62,6 +97,13 @@ class BufferedTopKState:
     buf_hi: torch.Tensor    # (P, C) int32
     buf_n: int              # filled buffer slots (host integer)
     thresh: torch.Tensor    # (P,) f32 k-th score at last flush
+    # the batch scan_step_compact queued last, not yet applied (settle)
+    pending: PendingBatch | None = field(default=None, repr=False)
+
+
+# the fields the JAX package's BufferedTopKState has (checkpoints, convert)
+STATE_FIELDS = ("scores", "row_lo", "row_hi", "buf_v", "buf_lo", "buf_hi",
+                "buf_n", "thresh")
 
 
 def init_buffered_state(n_phenotypes: int, k: int, buf_cap: int,
@@ -196,8 +238,9 @@ def _flush_state_only(st: BufferedTopKState) -> None:
 
 
 def flush_buffered(st: BufferedTopKState) -> topk_ops.TopKState:
-    """Drain the candidate buffer -> plain TopKState (for finalize and
-    checkpoints); `st` is left as it was."""
+    """Settle `st`, then drain the candidate buffer -> plain TopKState (for
+    finalize and checkpoints); `st` is otherwise left as it was."""
+    settle(st)
     k = st.scores.shape[1]
     return topk_ops.TopKState(*_top_merge(
         [st.scores, st.buf_v], [st.row_lo, st.buf_lo],
@@ -250,12 +293,11 @@ def compact_candidates(state: BufferedTopKState, packed, popcnt,
                        cand_c: int | None = None,
                        cand_c2: int | None = None, cand_q: int | None = None,
                        precision: str = "default"):
-    """The first half of scan_step_compact: launch the candidate kernel
-    and the guards -> (v, g, q, flags), all on the batch's device; flags
-    (2, P) bool stacks okc (every hot lane is among the candidates) and
-    the narrow test (the (q+1)-th candidate is cold; okc where there is
-    no q). Nothing here waits for the device, so a mesh can queue every
-    shard's kernel before it reads any shard's flags."""
+    """Launch the candidate kernel and the guards -> (v, g, q, flags), all
+    on the batch's device; flags (2, P) bool stacks okc (every hot lane is
+    among the candidates) and the narrow test (the (q+1)-th candidate is
+    cold; okc where there is no q). Every guard reads state.thresh as it
+    stands now. Nothing here waits for the device."""
     rows = packed.shape[0]
     assert rows % tile_rows == 0
     if cand_w is not None:
@@ -280,9 +322,12 @@ def compact_candidates(state: BufferedTopKState, packed, popcnt,
 
 
 @span("step_flags")
-def step_flags(cands):
-    """compact_candidates' flags on the host: the step's one sync."""
-    return cands[3].cpu()
+def step_flags(pend: PendingBatch) -> torch.Tensor:
+    """A pending batch's flags on the host: waits for their copy alone
+    (its event), not for the work queued behind it. The step's one wait."""
+    if pend.event is not None:
+        pend.event.synchronize()
+    return pend.flags
 
 
 @span("compact_apply")
@@ -291,9 +336,10 @@ def compact_apply(state: BufferedTopKState, cands, flags_host, packed,
                   min_count: int, cand_k: int, precision: str = "default",
                   col_group: int = 128, block: int = 16,
                   counts: dict | None = None) -> BufferedTopKState:
-    """The second half of scan_step_compact: given compact_candidates'
-    (v, g, q, flags) and the flags on the host, append or fall back;
-    updates `state` in place and returns it."""
+    """Given compact_candidates' (v, g, q, flags) and the flags on the
+    host, append or fall back; updates `state` in place and returns it.
+    The guards may have read an older, lower threshold than the state's
+    (module docstring): the decision stays exact."""
     v, g, q, _ = cands
     cap = state.buf_v.shape[1]
     p = state.scores.shape[0]
@@ -353,6 +399,62 @@ def compact_apply(state: BufferedTopKState, cands, flags_host, packed,
     return state
 
 
+def compact_enqueue(state: BufferedTopKState, packed, popcnt, row_lo,
+                    row_hi, y_padded, y_sum, *, n_used: int, min_count: int,
+                    cand_k: int, tile_rows: int, cand_w: int | None = None,
+                    cand_c: int | None = None, cand_c2: int | None = None,
+                    cand_q: int | None = None, precision: str = "default",
+                    col_group: int = 128, block: int = 16,
+                    counts: dict | None = None) -> PendingBatch | None:
+    """The first half of scan_step_compact: queue this batch's candidate
+    kernel, its guards and its flags' copy to the host, make it the state's
+    pending batch, and return the batch that was pending before it (None
+    if none), whose apply is the caller's (apply_pending). Nothing here
+    waits for the device, so a mesh can queue every shard's kernel before
+    it applies any shard's previous batch."""
+    cands = compact_candidates(
+        state, packed, popcnt, y_padded, y_sum, n_used=n_used,
+        min_count=min_count, tile_rows=tile_rows, cand_w=cand_w,
+        cand_c=cand_c, cand_c2=cand_c2, cand_q=cand_q, precision=precision)
+    flags = cands[3]
+    host = flags.to("cpu", non_blocking=True)   # pinned, from the card
+    prev, state.pending = state.pending, PendingBatch(
+        cands, host, step_event(flags.device),
+        (packed, popcnt, row_lo, row_hi, y_padded, y_sum),
+        dict(n_used=n_used, min_count=min_count, cand_k=cand_k,
+             precision=precision, col_group=col_group, block=block,
+             counts=counts))
+    return prev
+
+
+def apply_pending(state: BufferedTopKState, pend: PendingBatch, *,
+                  deferred: bool = True) -> BufferedTopKState:
+    """Append or fall back for the pending batch `pend` (taken off the
+    state by compact_enqueue or settle): wait for its flags, then
+    compact_apply. deferred: a later batch's kernel is queued (counted
+    `step.deferred`; `step.stale` too where this apply rewrote the
+    threshold that kernel read), else a settle (`step.settled`)."""
+    count("step.deferred" if deferred else "step.settled")
+    step = {}
+    compact_apply(state, pend.cands, step_flags(pend), *pend.batch,
+                  **dict(pend.kw, counts=step))
+    if deferred and ("flush" in step or "fallback" in step):
+        count("step.stale")
+    for key, n in step.items():
+        _count(pend.kw["counts"], key, n)
+    return state
+
+
+def settle(state: BufferedTopKState) -> BufferedTopKState:
+    """Apply the state's pending batch, if any: after this the state holds
+    every batch stepped so far. Every reader of a BufferedTopKState calls
+    it first (flush_buffered does)."""
+    pend, state.pending = state.pending, None
+    if pend is not None:
+        apply_pending(state, pend, deferred=False)
+    return state
+
+
 @span("scan_step_compact")
 def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
                       row_hi, y_padded, y_sum, *, n_used: int,
@@ -362,12 +464,16 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
                       precision: str = "default", col_group: int = 128,
                       block: int = 16, counts: dict | None = None
                       ) -> BufferedTopKState:
-    """One streamed batch -> the buffered top-k state, updated in place.
+    """One streamed batch -> the buffered top-k state, updated in place
+    one batch late: this batch is queued and left pending, and the batch
+    pending before it is applied (module docstring); `settle` applies the
+    last.
 
     packed (R, W32) int32 planes, popcnt (R,) f32 (0 marks padding rows),
     row_lo/row_hi (R,) int32 encoded row ids, y_padded (N_pad, P) f32,
-    y_sum (P,) f32, all on one device. R % tile_rows == 0; the buffer
-    capacity must be a multiple of the candidate width.
+    y_sum (P,) f32, all on one device; the state keeps them until the
+    batch is applied. R % tile_rows == 0; the buffer capacity must be a
+    multiple of the candidate width.
 
     cand_w: `cand_w` mode with W = cand_w candidates per column. None
     selects `cand_c` mode: the top-3 of the min(cand_c, R/tile_rows)
@@ -379,18 +485,19 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
     col_group: the guards and the append/fallback decision run per group of
     <= col_group columns, so one hot column group falls back alone (the
     groups share buf_n; a fallen-back group's slot is left at -inf).
-    counts: optional dict; the step adds 1 to "narrow", "wide" or
+    counts: optional dict; the batch's apply adds 1 to "narrow", "wide" or
     "fallback" (any group fell back), and to "flush" when the buffer was
-    merged before the append. The step is compact_candidates, one copy of
-    its flags to the host (the step's one sync), then compact_apply."""
-    cands = compact_candidates(
-        state, packed, popcnt, y_padded, y_sum, n_used=n_used,
-        min_count=min_count, tile_rows=tile_rows, cand_w=cand_w,
-        cand_c=cand_c, cand_c2=cand_c2, cand_q=cand_q, precision=precision)
-    return compact_apply(
-        state, cands, step_flags(cands), packed, popcnt, row_lo, row_hi,
-        y_padded, y_sum, n_used=n_used, min_count=min_count, cand_k=cand_k,
-        precision=precision, col_group=col_group, block=block, counts=counts)
+    merged before the append. The step is compact_enqueue, then
+    apply_pending for the batch queued before."""
+    prev = compact_enqueue(
+        state, packed, popcnt, row_lo, row_hi, y_padded, y_sum,
+        n_used=n_used, min_count=min_count, cand_k=cand_k,
+        tile_rows=tile_rows, cand_w=cand_w, cand_c=cand_c, cand_c2=cand_c2,
+        cand_q=cand_q, precision=precision, col_group=col_group, block=block,
+        counts=counts)
+    if prev is not None:
+        apply_pending(state, prev)
+    return state
 
 
 def scan_step_buffered(state: BufferedTopKState, packed, popcnt, row_lo,
@@ -455,6 +562,6 @@ def scan_step_buffered_multi(state: BufferedTopKState, packed, popcnt,
     return state
 
 
-def _count(counts: dict | None, key: str) -> None:
+def _count(counts: dict | None, key: str, n: int = 1) -> None:
     if counts is not None:
-        counts[key] = counts.get(key, 0) + 1
+        counts[key] = counts.get(key, 0) + n

@@ -234,30 +234,32 @@ def build_sharded_scan_step_compact(mesh: Mesh, *, n_used: int,
                                     counts: dict | None = None):
     """THE production multi-device step: ops/scanstep.scan_step_compact on
     every shard -> step(states, packed, popcnt, row_lo, row_hi, yp, ysum)
-    -> states (updated in place); arguments as
-    build_sharded_scan_step_buffered. Every shard's candidate kernel is
-    queued before any shard's flags are read, so shards on distinct cards
-    overlap; then each shard appends or falls back on its own. counts:
-    summed over shards."""
+    -> states (updated in place, one batch late as scan_step_compact;
+    ss.settle each state, or read it through finalize_sharded_buffered);
+    arguments as build_sharded_scan_step_buffered. Every shard's candidate
+    kernel is queued before any shard's previous batch is applied, so
+    shards on distinct cards overlap; then each shard appends or falls
+    back on its own. counts: summed over shards."""
     def step(states, packed, popcnt, row_lo, row_hi, yp, ysum):
-        cands = [ss.compact_candidates(
-            st, packed[d], popcnt[d], yp[d], ysum[d], n_used=n_used,
-            min_count=min_count, tile_rows=tile_rows, cand_w=cand_w,
-            cand_c=cand_c, cand_c2=cand_c2, cand_q=cand_q,
-            precision=precision) for d, st in enumerate(states)]
-        for d, (st, c) in enumerate(zip(states, cands)):
-            ss.compact_apply(
-                st, c, ss.step_flags(c), packed[d], popcnt[d], row_lo[d],
-                row_hi[d], yp[d], ysum[d], n_used=n_used,
-                min_count=min_count, cand_k=cand_k, precision=precision,
-                col_group=col_group, block=block, counts=counts)
+        prev = [ss.compact_enqueue(
+            st, packed[d], popcnt[d], row_lo[d], row_hi[d], yp[d], ysum[d],
+            n_used=n_used, min_count=min_count, cand_k=cand_k,
+            tile_rows=tile_rows, cand_w=cand_w, cand_c=cand_c,
+            cand_c2=cand_c2, cand_q=cand_q, precision=precision,
+            col_group=col_group, block=block, counts=counts)
+            for d, st in enumerate(states)]
+        for st, pend in zip(states, prev):
+            if pend is not None:
+                ss.apply_pending(st, pend)
         return states
     return step
 
 
 def _candidates(state) -> list:
-    """A BufferedTopKState's carried top-k and buffer side by side: the
-    (P, K + C) score, row_lo and row_hi planes, on the host."""
+    """A BufferedTopKState's carried top-k and buffer side by side (after
+    its pending batch is applied): the (P, K + C) score, row_lo and row_hi
+    planes, on the host."""
+    ss.settle(state)
     return [torch.cat([a, b], dim=1).cpu().numpy() for a, b in (
         (state.scores, state.buf_v), (state.row_lo, state.buf_lo),
         (state.row_hi, state.buf_hi))]

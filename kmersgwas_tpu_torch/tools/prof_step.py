@@ -142,7 +142,8 @@ def compact(device="cuda", rows=1 << 21, n=1008, p=101, k=10001,
     t = timeit(lambda: ss.scan_step_compact(
         state, *batches[next(i) % n_batches], yp, ysum, **step_kw), dev,
         iters, warmup=0)
-    rep(f"compact step (warm buf_n={state.buf_n})", t, scored=True)
+    rep(f"compact step (warm buf_n={ss.settle(state).buf_n})", t,
+        scored=True)
     return rep.lines
 
 

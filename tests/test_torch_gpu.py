@@ -548,6 +548,66 @@ def test_distributed_scan_on_card_equals_cpu_and_associate(cuda, tmp_path):
             np.testing.assert_array_equal(got[0][j][0], other[0])
 
 
+def test_scan_step_queues_the_next_kernel_before_the_apply(cuda):
+    """The scan step one batch deep at the athal1008 shapes (N=1008,
+    P=101, top 10001, 2,000,000-row batches, associate's cand_w step): 20
+    batches after a 60-batch ramp. Every apply but the last is deferred
+    (the last is settled at the flush), every K1 after the first is
+    launched inside its score_batch_t_topw range before the previous
+    batch's compact_apply begins, and the final top-k equals the same
+    stream settled after every step."""
+    from torch.profiler import ProfilerActivity, profile
+    from kmersgwas_tpu_torch import utils
+    from kmersgwas_tpu_torch.ops import scanstep as ss
+    from kmersgwas_tpu_torch.pipeline import scan
+    n, p, k, rows, w32 = 1008, 101, 10001, 2_000_000, 32
+    y = np.random.default_rng(21).normal(size=(n, p)).astype(np.float32)
+    yp, ysum = score.prepare_phenotypes(y, 32 * w32, cuda)
+    iota = torch.arange(rows, dtype=torch.int32, device=cuda)
+    hi0 = torch.zeros(rows, dtype=torch.int32, device=cuda)
+    kw = dict(n_used=n, min_count=scan.effective_min_count(n, 0.05, 5),
+              cand_k=min(max(256, k // 8), k), tile_rows=scan.TILE_ROWS,
+              cand_w=scan.CAND_W, cand_q=scan.CAND_Q)
+
+    def step(st, b):
+        planes, pc = gen.gen_planes(rows, w32, 77, b, cuda)
+        ss.scan_step_compact(st, planes, pc, iota + b * rows, hi0, yp, ysum,
+                             **kw)
+
+    st = ss.init_buffered_state(p, k, scan.BUF_CAP, cuda)
+    for b in range(60):
+        step(st, b)
+    ss.settle(st)
+    twin = ss.BufferedTopKState(**{
+        f: (v.clone() if torch.is_tensor(v) else v)
+        for f, v in ((f, getattr(st, f)) for f in ss.STATE_FIELDS)})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with utils.tracing():
+            for b in range(60, 80):
+                step(st, b)
+            got = ss.flush_buffered(st)
+        torch.cuda.synchronize()
+    c = utils.last_trace().counters
+    assert c.get("step.deferred") == 19 and c.get("step.settled") == 1, c
+    ranges = {}
+    for e in prof.events():
+        if e.name in ("kgt::score_batch_t_topw", "kgt::compact_apply"):
+            ranges.setdefault(e.name, []).append(e.time_range)
+    k1, apply = (sorted(ranges[nm], key=lambda r: r.start) for nm in
+                 ("kgt::score_batch_t_topw", "kgt::compact_apply"))
+    assert len(k1) == len(apply) == 20
+    for i in range(1, 20):
+        assert k1[i].end <= apply[i - 1].start, i
+    for b in range(60, 80):
+        step(twin, b)
+        ss.settle(twin)
+    want = ss.flush_buffered(twin)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("tr", [4, 16, 256, 2048, 4096])
 def test_tile_reduce_kernels_equal_plain(cuda, tr):
     """K9: every case of the exp_kernel tool, kernel planes bit-equal to

@@ -16,8 +16,10 @@ from kmersgwas_tpu.ops import bitplanes as jbits
 from kmersgwas_tpu.ops import scanstep as jss
 from kmersgwas_tpu.ops import score as jscore
 from kmersgwas_tpu.ops import topk as jtopk
-from kmersgwas_tpu_torch import convert
+from kmersgwas_tpu_torch import convert, utils
 from kmersgwas_tpu_torch.ops import bitplanes, scanstep, topk
+from kmersgwas_tpu_torch.parallel import sharding
+from kmersgwas_tpu_torch.pipeline import checkpoint as ckpt
 
 N, N_PAD, ROWS, MIN_COUNT = 40, 128, 256, 2
 
@@ -143,6 +145,124 @@ def test_col_group_stream_matches_jax():
     assert counts.get("narrow", 0) + counts.get("wide", 0) >= 5, counts
 
 
+@pytest.mark.parametrize("mode,width", [(dict(cand_w=8), 8),
+                                        (dict(cand_c=4), 12)],
+                         ids=["cand_w", "cand_c"])
+def test_stale_threshold_stream_matches_jax(mode, width):
+    """A buffer one candidate width wide makes most steps flush or fall
+    back, so most deferred applies raise the threshold that the next
+    batch's guards have already read (`step.stale`): col_group 4 over
+    P=10, with narrow and wide appends, in both
+    candidate modes, must still end bit-equal to the JAX package's plain
+    scan. Every batch but the last is applied by the next step, the last
+    by the flush's settle."""
+    y, batches = stream(35, p=10, n_batches=24, tie_column=2)
+    want_s, want_r = jax_plain_final(y, batches, k=12)
+    counts = {}
+    st = scanstep.init_buffered_state(10, 12, buf_cap=width, device="cpu")
+    with utils.tracing():
+        got_s, got_r = port_run(st, y, batches, counts, tile_rows=16,
+                                cand_q=4, col_group=4, **mode)
+    np.testing.assert_array_equal(got_s, want_s)
+    np.testing.assert_array_equal(got_r, want_r)
+    c = utils.last_trace().counters
+    assert c["step.deferred"] == len(batches) - 1, c
+    assert c["step.settled"] == 1, c
+    assert c["step.stale"] > 0, c
+    assert counts.get("flush", 0) + counts.get("fallback", 0) \
+        > len(batches) // 2, counts
+    assert counts.get("narrow", 0) + counts.get("wide", 0) >= 5, counts
+
+
+def _step_kw():
+    return dict(n_used=N, min_count=MIN_COUNT, cand_k=12, tile_rows=16,
+                cand_w=8, cand_q=4)
+
+
+@pytest.mark.parametrize("form", ["plain", "buffered"])
+def test_checkpoint_mid_stream_resumes_equal(tmp_path, form):
+    """A checkpoint saved mid-stream holds the batch still pending: plain,
+    the flushed top-k (associate's form) seeding a fresh state; buffered,
+    the whole state (the multi-process scan's form, convert.to_numpy).
+    Resumed, it ends equal to the uninterrupted run, and so does the run
+    that saved it and went on."""
+    y, batches = stream(21, p=3, n_batches=30)
+    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
+    whole = scanstep.init_buffered_state(3, 16, buf_cap=24, device="cpu")
+    want = port_run(whole, y, batches, {}, tile_rows=16, cand_w=8, cand_q=4)
+    st = scanstep.init_buffered_state(3, 16, buf_cap=24, device="cpu")
+    for b in batches[:13]:
+        scanstep.scan_step_compact(st, *port_batch(b), yp, ysum, **_step_kw())
+    assert st.pending is not None
+    path = str(tmp_path / "ck")
+    meta = {"n_used": N}
+    if form == "plain":
+        ckpt.save_scan_state(path, scanstep.flush_buffered(st), 13 * ROWS,
+                             13 * ROWS, stream="stream", meta=meta)
+        plain = ckpt.load_scan_state(path, meta=meta)[0]
+        resumed = sharding.init_sharded_buffered_state(
+            sharding.make_mesh(["cpu"]), 3, 16, 24, seed_state=plain)[0]
+    else:
+        ckpt.save_distributed_state(path, st, 13 * ROWS, 13 * ROWS,
+                                    "stream", meta)
+        resumed = ckpt.load_distributed_state(path, "stream", meta, "cpu")[0]
+    assert st.pending is None
+    for run in (resumed, st):
+        got = port_run(run, y, batches[13:], {}, tile_rows=16, cand_w=8,
+                       cand_q=4)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_finalize_settles_every_shard():
+    """finalize_sharded_buffered over a 2-shard CPU mesh (the mesh step:
+    every shard's kernel queued, then every shard's previous batch
+    applied) applies each shard's pending batch and equals one shard."""
+    y, batches = stream(33, p=3, n_batches=20)
+    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
+    finals = []
+    for devices in (["cpu"], ["cpu", "cpu"]):
+        mesh = sharding.make_mesh(devices)
+        states = sharding.init_sharded_buffered_state(mesh, 3, 16, 24)
+        counts = {}
+        step = sharding.build_sharded_scan_step_compact(
+            mesh, counts=counts, **_step_kw())
+        yps, ysums = sharding.replicate(mesh, yp, ysum)
+        for b in batches:
+            step(states, *sharding.shard_batch(mesh, list(port_batch(b))),
+                 yps, ysums)
+        assert all(st.pending is not None for st in states)
+        finals.append(sharding.finalize_sharded_buffered(states))
+        assert all(st.pending is None for st in states)
+        assert sum(counts.get(k, 0) for k in ("narrow", "wide", "fallback")
+                   ) == len(batches) * len(devices), counts
+    for (gv, gr), (wv, wr) in zip(*finals):
+        np.testing.assert_array_equal(gv, wv)
+        np.testing.assert_array_equal(gr, wr)
+
+
+def test_flush_settles_once_and_counts_every_batch():
+    """flush_buffered applies the pending batch: a second flush gives the
+    same answer, and after it the branch counts sum to the batches."""
+    y, batches = stream(33, p=3, n_batches=30)
+    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
+    st = scanstep.init_buffered_state(3, 16, buf_cap=24, device="cpu")
+    counts = {}
+    for b in batches:
+        scanstep.scan_step_compact(st, *port_batch(b), yp, ysum,
+                                   counts=counts, **_step_kw())
+    assert sum(counts.get(k, 0) for k in ("narrow", "wide", "fallback")
+               ) == len(batches) - 1, counts
+    first = scanstep.flush_buffered(st)
+    assert sum(counts.get(k, 0) for k in ("narrow", "wide", "fallback")
+               ) == len(batches), counts
+    second = scanstep.flush_buffered(st)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert sum(counts.get(k, 0) for k in ("narrow", "wide", "fallback")
+               ) == len(batches), counts
+
+
 def test_flush_merge_picks_a_tier_per_column(monkeypatch):
     """The exact wide merge equals a stable sort of (state, buffer, whole
     batch) when column 0 is exact at the cand_k tier, column 1 only at the
@@ -187,23 +307,40 @@ def test_flush_merge_picks_a_tier_per_column(monkeypatch):
 
 def test_fallback_pieces_run_in_named_profiler_ranges():
     """A fallback step's pieces show in torch.profiler as ranges
-    kgt::<name>, each inside the one that calls it: the step, its halves
-    (K1's call inside the first), the flags' copy, and inside
+    kgt::<name>, each inside the one that calls it: the step, its
+    candidate half (K1's call inside it), the flags' wait, and inside
     compact_apply K2's call and _flush_merge with top_k_from_bmax inside
-    it, the names chip_smoke.py splits a fallback by. The first batch
-    always falls back (the threshold starts at -inf)."""
+    it, the names chip_smoke.py splits a fallback by. A batch is applied
+    one call late: the first call only queues batch 0, whose apply (a
+    fallback: the threshold starts at -inf) runs in the second call, after
+    batch 1's candidates are queued."""
     from torch.profiler import ProfilerActivity, profile
-    y, batches = stream(33, p=3, n_batches=1)
+    y, batches = stream(33, p=3, n_batches=2)
     yp, ysum = (torch.from_numpy(a) for a in _prep(y))
     st = scanstep.init_buffered_state(3, 16, buf_cap=24, device="cpu")
     counts = {}
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        scanstep.scan_step_compact(st, *port_batch(batches[0]), yp, ysum,
-                                   n_used=N, min_count=MIN_COUNT, cand_k=12,
-                                   tile_rows=16, cand_w=8, cand_q=4,
-                                   counts=counts)
+        for b in batches:
+            scanstep.scan_step_compact(st, *port_batch(b), yp, ysum,
+                                       n_used=N, min_count=MIN_COUNT,
+                                       cand_k=12, tile_rows=16, cand_w=8,
+                                       cand_q=4, counts=counts)
     assert counts == {"fallback": 1}, counts
-    events = {e.name: e for e in prof.events() if e.name.startswith("kgt::")}
+    assert st.pending is not None
+    scanstep.settle(st)
+    assert st.pending is None and sum(counts.values()) == 2, counts
+    kgt = [e for e in prof.events() if e.name.startswith("kgt::")]
+    first, second = sorted((e.time_range for e in kgt
+                            if e.name == "kgt::scan_step_compact"),
+                           key=lambda r: r.start)
+
+    def inside(r):
+        return [e for e in kgt if r.start <= e.time_range.start
+                and e.time_range.end <= r.end]
+    assert sorted(e.name for e in inside(first)) == [
+        "kgt::compact_candidates", "kgt::scan_step_compact",
+        "kgt::score_batch_t_topw"]
+    events = {e.name: e for e in inside(second)}
     parent = {"compact_candidates": "scan_step_compact",
               "score_batch_t_topw": "compact_candidates",
               "step_flags": "scan_step_compact",

@@ -161,6 +161,7 @@ def test_cand_c_step_matches_jax_after_every_batch(case):
             st, bitplanes.as_planes(packed), torch.from_numpy(pc),
             torch.from_numpy(lo), torch.from_numpy(hi), yp, ysum,
             counts=counts, **common)
+        scanstep.settle(st)         # the step applies its batch one call late
         assert st.buf_n == int(ref.buf_n)
         np.testing.assert_array_equal(st.thresh.numpy(),
                                       np.asarray(ref.thresh))

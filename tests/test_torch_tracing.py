@@ -36,8 +36,10 @@ SCAN_PARENTS = {
     "scan_step": {"associate_stream"},
     "compact_candidates": {"scan_step"},
     "score_batch_t_topw": {"compact_candidates"},
-    "step_flags": {"scan_step"},
-    "compact_apply": {"scan_step"},
+    # a batch is applied by the next step, or by the settle of a
+    # checkpoint's or the finalize's read of the state
+    "step_flags": {"scan_step", "checkpoint_save", "associate_finalize"},
+    "compact_apply": {"scan_step", "checkpoint_save", "associate_finalize"},
     "score_batch_t_bmax": {"compact_apply"},
     "_flush_merge": {"compact_apply"},
     "top_k_from_bmax": {"_flush_merge"},
@@ -216,8 +218,9 @@ def test_a_job_span_under_the_profiler_fills_the_recorder():
 
 
 def test_spans_lie_on_the_profilers_clock():
-    """Each recorder span of a fallback step lies within 1 ms of its
-    torch.profiler range (the trace's start plus the range's offset)."""
+    """Each recorder span of a fallback step (queued, then applied by the
+    settle) lies within 1 ms of its torch.profiler range (the trace's
+    start plus the range's offset)."""
     from torch.profiler import ProfilerActivity, profile
     y, batches = stream(33, p=3, n_batches=1)
     yp, ysum = (torch.from_numpy(a) for a in _prep(y))
@@ -228,6 +231,7 @@ def test_spans_lie_on_the_profilers_clock():
                 st, *port_batch(batches[0]), yp, ysum, n_used=N,
                 min_count=MIN_COUNT, cand_k=12, tile_rows=16, cand_w=8,
                 cand_q=4)
+            scanstep.settle(st)
     t0 = prof.profiler.kineto_results.trace_start_ns()
     ranges = sorted((e for e in prof.events()
                      if e.name.startswith(utils.PREFIX)),
