@@ -66,9 +66,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      N=200 table: stdout byte-identical;
  10. `kinship-mp` in 2 processes sharing the card against phase 8's
      one-process matrix: `write_kinship`'s TSV byte-identical;
- 11. the plain scan step `scan_step` (K4 on every batch) at the main
-     path's shape, top-10001, cand_k 1250, 14 device-made 2M-row batches
-     through both its branches, held against a plain running top-k;
+ 11. (none: the phases after it keep their numbers);
  12. `score_batch` (K5, the score plane's row-major mode) on one flagship
      batch against a numpy f64 computation on sampled rows;
  13. K6 (gen_planes) against its plain version at (2^21, 32) for two
@@ -158,10 +156,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      (phase_mesh): `associate(mesh=)` over 2 and 4 shards on phase 3's
      table equal to phase 3's result (rows, order, certified f64
      re-scores; K1 on every shard's batch), `kinship_from_table(mesh=)`
-     over 2 shards equal to phase 8's K (K7 per shard), the legacy
-     sharded step (K4 per shard) and the buffered one (K2 per shard)
-     against a plain running top-k, and the CLI `associate`, `kinship`
-     and `gwas` with --devices 2 byte-identical to --devices 1;
+     over 2 shards equal to phase 8's K (K7 per shard), and the CLI
+     `associate`, `kinship` and `gwas` with --devices 2 byte-identical
+     to --devices 1;
  23. `gwas-mp` in 8 processes sharing the card on phase 21's table,
      SIGKILLed once every process's scan checkpoint exists, then run
      again: phase 21's `gwas` artifacts byte for byte (phase_crash_resume);
@@ -949,8 +946,11 @@ def time_step_kernels(rows=2_097_152, n=1008, p=101, w=256):
 
 def phase_kernels():
     """-> the largest errors measured over every shape (Gaussian phenotypes
-    at "highest"; dyadic ones are checked bit-equal) and the flagship
-    times."""
+    at "highest"; dyadic ones are checked bit-equal), the flagship times
+    and K4's launches (no scan path runs K4: its checks here are its
+    use)."""
+    from kmersgwas_tpu_torch.ops import score
+    score.score_batch_t.launches = 0
     e = [0.0] * 5
     for rows, n, p, w in ((1024, 100, 3, 16), (1024, 100, 70, 256),
                           (1024, 300, 1013, 64), (4096, 1008, 101, 256)):
@@ -988,7 +988,7 @@ def phase_kernels():
     log(f"product-only yardstick: torch._int_mm of the (2^20, 1024) +-1 "
         f"int8 operand unpacked beforehand, the full Gram: {kt[6]:.3f} ms "
         f"({ops / kt[6] / 1e9:.1f} T int8 op/s; not K7's function)")
-    return dict(errs=e, times=times + kt)
+    return dict(errs=e, times=times + kt, k4=score.score_batch_t.launches)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1851,81 +1851,6 @@ def phase_kinship_mp(workdir, main, kin, n_proc=2, device="cuda",
     need(a == b, "kinship-mp TSV differs from the one-process kinship")
     log(f"kinship-mp: {len(a) / 2**20:.1f} MiB TSV byte-identical between "
         f"{n_proc} processes sharing the card and the one-process matrix")
-
-
-# ---------------------------------------------------------------- phase 11
-
-def phase_scan_step(n_batches=14, rows=2_000_000, n=1008, p=101, k=10001,
-                    device="cuda"):
-    """The plain scan step (`scan_step`, K4 on every batch) at the main
-    path's shape: device-made 2M-row batches at top-10001 with the JAX
-    scan's cand_k = max(256, k // 8) = 1250, so the early batches take
-    the full top-k fallback and, once the carried k-th settles above the
-    batches' 1250th score, the exact candidate merge. Dyadic phenotypes at
-    "default": the top-k must equal a plain running top-k, scores and
-    rows, after the last batch. Smaller arguments and device="cpu"
-    rehearse the phase without a card."""
-    import torch
-    from kmersgwas_tpu_torch.ops import scanstep as ss
-    from kmersgwas_tpu_torch.ops import score, topk
-    from kmersgwas_tpu_torch.pipeline import scan
-    min_count = scan.effective_min_count(n, 0.05, 5)
-    y = dyadic(np.random.default_rng(13), (n, p))
-    yp, ysum = score.prepare_phenotypes(y, -(-n // 128) * 128, device)
-    cuda = device == "cuda"
-    cand_k = max(256, k // 8)
-    state = topk.TopKState(
-        torch.full((p, k), float("-inf"), device=device),
-        torch.zeros((p, k), dtype=torch.int32, device=device),
-        torch.zeros((p, k), dtype=torch.int32, device=device))
-    ov = torch.full((p, k), float("-inf"), device=device)
-    orow = torch.zeros((p, k), dtype=torch.int64, device=device)
-    counts, step_ms = {}, {"exact": [], "fallback": []}
-    score.score_batch_t.launches = 0
-    for b in range(n_batches):
-        packed, pc = make_planes(rows, n, seed=5000 + b, device=device)
-        lo = torch.arange(b * rows, (b + 1) * rows, dtype=torch.int32,
-                          device=device)
-        before = dict(counts)
-        if cuda:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = ss.scan_step(state, packed, pc, lo, torch.zeros_like(lo),
-                             yp, ysum, n_used=n, min_count=min_count,
-                             cand_k=cand_k, precision="default",
-                             counts=counts)
-        if cuda:
-            torch.cuda.synchronize()
-        kind = next(x for x in counts if counts[x] != before.get(x, 0))
-        step_ms[kind].append(1e3 * (time.perf_counter() - t0))
-        sc = score.scores_t_plain(packed, pc, yp, ysum, n_used=n,
-                                  min_count=min_count, precision="default")
-        v, j = torch.sort(torch.cat([ov, sc], dim=1), dim=1,
-                          descending=True, stable=True)
-        j = j[:, :k]
-        orow = torch.where(j < k, orow.gather(1, j.clamp(max=k - 1)),
-                           b * rows + j - k)
-        ov = v[:, :k].contiguous()
-        del sc, v, j
-    launches = score.score_batch_t.launches
-    got_rows = topk.decode_rows(state.row_lo.cpu().numpy(),
-                                state.row_hi.cpu().numpy())
-    log(f"scan_step: {n_batches} batches of {rows} rows, N={n} P={p} k={k} "
-        f"cand_k={cand_k}; branches {counts}; "
-        + "; ".join(f"{x} step ms median {statistics.median(ms):.2f} over "
-                    f"{len(ms)}" for x, ms in step_ms.items() if ms)
-        + f"; K4 score_t launches {launches}")
-    need(launches == n_batches or not cuda,
-         f"scan_step: K4 launched {launches} times")
-    need(counts.get("exact", 0) >= 1 and counts.get("fallback", 0) >= 1,
-         f"scan_step: both branches must run: {counts}")
-    need(torch.equal(state.scores, ov),
-         "scan_step: scores differ from the plain running top-k")
-    need(np.array_equal(got_rows, orow.cpu().numpy()),
-         "scan_step: rows differ from the plain running top-k")
-    log(f"scan_step: final top-{k} of all {p} columns equal the plain "
-        f"running top-k (scores and rows)")
-    return dict(k4=launches)
 
 
 # ---------------------------------------------------------------- phase 12
@@ -4076,8 +4001,7 @@ def cli_files(out):
     return files
 
 
-def phase_mesh(main, kin, workdir, shards=(2, 4), steps_rows=1 << 21,
-               n_steps=3, device="cuda"):
+def phase_mesh(main, kin, workdir, shards=(2, 4), device="cuda"):
     """The single-process device mesh (phase 22), its shards all on the
     one card (sharding.make_mesh([cuda:0] * D)), so the sharded path runs
     for real: per-shard states, per-shard kernel launches, the cross-shard
@@ -4089,27 +4013,20 @@ def phase_mesh(main, kin, workdir, shards=(2, 4), steps_rows=1 << 21,
          re-scores bit-equal; K1 launched D times a batch;
       b. `kinship_from_table(mesh=)` with 2 shards: phase 8's K bit for
          bit (K7 on each shard);
-      c. the legacy plain step (build_sharded_scan_step: K4 on each shard,
-         the shards' candidates merged into the state) and the buffered
-         step (build_sharded_scan_step_buffered: K2 on each shard, merged
-         at finalize), 2 shards, n_steps device-made batches at N=1008,
-         P=101, top-10001: both equal a plain running top-k (scores and
-         rows);
-      d. the CLI `associate`, `kinship` and `gwas` with `--devices 2` on
+      c. the CLI `associate`, `kinship` and `gwas` with `--devices 2` on
          phase 5's table (phase 18's phenotype for gwas): stdout and every
          file byte-identical to `--devices 1` (summary.json but its stage
          times).
-    The K1, K2, K4 and K7 counts of the phase are returned; each must be
+    The K1, K2 and K7 counts of the phase are returned; each must be
     positive."""
-    import torch
     from kmersgwas_tpu_torch.ops import kinship as kin_ops
-    from kmersgwas_tpu_torch.ops import score, topk
+    from kmersgwas_tpu_torch.ops import score
     from kmersgwas_tpu_torch.parallel import sharding
     from kmersgwas_tpu_torch.pipeline import kinship as km
     from kmersgwas_tpu_torch.pipeline import scan
     cuda = device == "cuda"
     counters = {"k1": score.score_batch_t_topw,
-                "k2": score.score_batch_t_bmax, "k4": score.score_batch_t,
+                "k2": score.score_batch_t_bmax,
                 "k7": kin_ops.kinship_accumulate,
                 "k7t": kin_ops.transpose_bits}
     for c in counters.values():
@@ -4171,67 +4088,7 @@ def phase_mesh(main, kin, workdir, shards=(2, 4), steps_rows=1 << 21,
     log(f"mesh: kinship over 2 shards equals phase 8's bit for bit "
         f"({walls['kinship D=2']:.2f} s, K7 launches {k7})")
 
-    # c. the legacy and the buffered step over 2 shards
-    n, p, k = main["n"], len(main["cols"]), main["k"]
-    min_count = scan.effective_min_count(n, 0.05, 5)
-    y = dyadic(np.random.default_rng(22), (n, p))
-    yp, ysum = score.prepare_phenotypes(y, -(-n // 128) * 128, device)
-    yps, ysums = sharding.replicate(mesh, yp, ysum)
-    legacy = sharding.build_sharded_scan_step(
-        mesh, n_used=n, min_count=min_count, k=k)
-    buffered = sharding.build_sharded_scan_step_buffered(
-        mesh, n_used=n, min_count=min_count, cand_c=512, cand_k=2048)
-    st_l = topk.init_state(p, k, device)
-    st_b = sharding.init_sharded_buffered_state(mesh, p, k, 512 * 8)
-    ov = torch.full((p, k), float("-inf"), device=device)
-    orow = torch.zeros((p, k), dtype=torch.int64, device=device)
-    k2, k4 = score.score_batch_t_bmax.launches, score.score_batch_t.launches
-    ms = {"legacy": [], "buffered": []}
-    for b in range(n_steps):
-        packed, pc = make_planes(steps_rows, n, seed=2200 + b, device=device)
-        lo = torch.arange(b * steps_rows, (b + 1) * steps_rows,
-                          dtype=torch.int32, device=device)
-        batch = sharding.shard_batch(mesh, [packed, pc, lo,
-                                            torch.zeros_like(lo)])
-        for name in ms:
-            if cuda:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if name == "legacy":
-                st_l = legacy(st_l, *batch, yps, ysums)
-            else:
-                buffered(st_b, *batch, yps, ysums)
-            if cuda:
-                torch.cuda.synchronize()
-            ms[name].append(1e3 * (time.perf_counter() - t0))
-        sc = score.scores_t_plain(packed, pc, yp, ysum, n_used=n,
-                                  min_count=min_count)
-        v, j = torch.sort(torch.cat([ov, sc], dim=1), dim=1,
-                          descending=True, stable=True)
-        j = j[:, :k]
-        orow = torch.where(j < k, orow.gather(1, j.clamp(max=k - 1)),
-                           b * steps_rows + j - k)
-        ov = v[:, :k].contiguous()
-        del sc, v, j, batch
-    k2 = score.score_batch_t_bmax.launches - k2
-    k4 = score.score_batch_t.launches - k4
-    want = [(ov[j].double().cpu().numpy(), orow[j].cpu().numpy())
-            for j in range(p)]
-    for name, got in (("legacy", topk.finalize(st_l)),
-                      ("buffered", sharding.finalize_sharded_buffered(st_b))):
-        bad = [j for j in range(p) if not (
-            np.array_equal(got[j][0], want[j][0])
-            and np.array_equal(got[j][1], want[j][1]))]
-        need(not bad, f"mesh: the sharded {name} step's columns {bad[:5]} "
-             "differ from the plain running top-k")
-    need((k4 == 2 * n_steps and k2 >= 2) or not cuda,
-         f"mesh: K4 launched {k4} times, K2 {k2}")
-    log(f"mesh: the legacy step (K4 x {k4}) and the buffered step (K2 x "
-        f"{k2}) over 2 shards, {n_steps} batches of {steps_rows} rows, "
-        f"N={n} P={p} top-{k}: both equal the plain running top-k; step ms "
-        + json.dumps({a: [round(x, 2) for x in b] for a, b in ms.items()}))
-
-    # d. the CLI with --devices 2 against --devices 1
+    # c. the CLI with --devices 2 against --devices 1
     small = os.path.join(workdir, "small")
     pheno = os.path.join(workdir, "small.pheno")
     gpheno = os.path.join(workdir, "gwas_small.pheno")
@@ -4542,7 +4399,6 @@ def main():
         kin = timed(phase_kinship, mres, workdir)
         timed(phase_kinship_cli, workdir)
         timed(phase_kinship_mp, workdir, mres, kin)
-        sres = timed(phase_scan_step)
         bres = timed(phase_score_batch)
         gres = timed(phase_gen)
         bench_res = timed(phase_bench, workdir)
@@ -4569,8 +4425,9 @@ def main():
     # K1, K2 and K7 run on several paths: the scan (phase 3) or kinship
     # (phase 8), gwas (phase 18), K1 and K2 gwas with the SNP arm (phase
     # 19), reads to results (phase 21: gwas K1, K2 and K7, gwas-mp's
-    # ranks K3, K2 and K7), the mesh (phase 22: K1, K2, K4, K7 on its
-    # shards) and the resumed gwas-mp (phase 23: K3, K2, K7)
+    # ranks K3, K2 and K7), the mesh (phase 22: K1, K2, K7 on its
+    # shards) and the resumed gwas-mp (phase 23: K3, K2, K7); K4 runs in
+    # phase 2's checks alone
     rows = [("score_topw", TOPW_SOURCE, TOPW_REPLACES,
              mres["k1"] + gw["k1"] + snp["k1"] + ing["k1"] + mesh["k1"],
              e[0], t[0], t[1]),
@@ -4580,7 +4437,7 @@ def main():
             ("score_tilemax", TILEMAX_SOURCE, TILEMAX_REPLACES,
              pres["k3"] + ing["k3"] + crash["k3"], e[2], t[4], t[5]),
             ("score_t", SCORE_T_SOURCE, SCORE_T_REPLACES,
-             sres["k4"] + mesh["k4"], e[3], t[6], t[7]),
+             kres["k4"], e[3], t[6], t[7]),
             ("score_rows", SCORE_ROWS_SOURCE, SCORE_ROWS_REPLACES,
              bres["k5"], e[4], t[8], t[9]),
             ("kinship_gram", KINSHIP_SOURCE, KINSHIP_REPLACES,

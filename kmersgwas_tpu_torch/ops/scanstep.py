@@ -1,28 +1,23 @@
-"""The scan's per-batch steps (port of kmersgwas_tpu/ops/scanstep.py).
+"""The scan's per-batch step (port of kmersgwas_tpu/ops/scanstep.py's
+`scan_step_compact`).
 
-`scan_step` (:38-91) is the plain step: score the whole batch (the
-score_t kernel), take the batch's top-cand_k and merge it into the carried
-top-k, falling back to the batch's full top-k when that merge cannot be
-proven exact. `scan_step_compact` (:379-662) carries a buffered state, in
-two candidate modes:
+`scan_step_compact` carries a buffered top-k state (the carried top-k, a
+side buffer of candidates and the threshold `thresh`, the k-th score at
+the last merge) in two candidate modes:
   cand_w — the score_topw kernel returns each column's top-W (score, lane)
            candidates and a guard (the single-process scan's step);
   cand_c — the score_tilemax kernel returns per-tile top-3 planes; the step
            keeps the c hottest tiles' candidates (the multi-process scan's
-           step, :476-519).
+           step).
 
-When every lane that could still enter the top-k (score > thresh, the
-k-th score at the last merge) is provably among the candidates, the step
-only appends them to a side buffer (the top q of them when the (q+1)-th is
-already <= thresh); otherwise it recomputes the full scores with the
-score_bmax kernel and runs the exact wide merge. Exact by construction,
-with the reference heap's tie rules: only a strictly greater score
-displaces, and the earliest row wins among equals (the concatenation order
-state < buffer < batch, then a stable sort). `scan_step_buffered`
-(:137-230) carries the same state with no candidate kernel: the full
-scores and block maxima every batch (score_bmax), the batch's top cand_c
-appended when that is exact, the wide merge otherwise;
-`scan_step_buffered_multi` runs it over a stack of batches.
+When every lane that could still enter the top-k (score > thresh) is
+provably among the candidates, the step only appends them to the buffer
+(the top q of them when the (q+1)-th is already <= thresh); otherwise it
+recomputes the full scores with the score_bmax kernel and runs the exact
+wide merge (`_flush_merge`). Exact by construction, with the reference
+heap's tie rules: only a strictly greater score displaces, and the
+earliest row wins among equals (the concatenation order state < buffer <
+batch, then a stable sort).
 
 Each `lax.cond` of the reference is a host branch here, decided from
 device flags that one small device-to-host copy per step brings back; a
@@ -129,52 +124,6 @@ def _top_merge(vs, los, his, k: int):
     nv, j = topk_ops.top_k(cat_v, k)
     return (nv, torch.cat(los, dim=1).gather(1, j),
             torch.cat(his, dim=1).gather(1, j))
-
-
-def _merge(state: topk_ops.TopKState, v, blo, bhi) -> topk_ops.TopKState:
-    """Stable top-k of (state, batch candidates): state entries win ties."""
-    k = state.scores.shape[1]
-    return topk_ops.TopKState(*_top_merge([state.scores, v],
-                                          [state.row_lo, blo],
-                                          [state.row_hi, bhi], k))
-
-
-def scan_step(state: topk_ops.TopKState, packed, popcnt, row_lo, row_hi,
-              y_padded, y_sum, *, n_used: int, min_count: int,
-              block: int = 16, cand_k: int | None = None,
-              precision: str = "default",
-              counts: dict | None = None) -> topk_ops.TopKState:
-    """One streamed batch -> the merged top-k state (a new TopKState).
-
-    packed (R, W32) int32 planes, popcnt (R,) f32 with 0 marking padding
-    rows, row_lo/row_hi (R,) int32 encoded row ids, y_padded (N_pad, P)
-    f32, all on one device. Scores come from score_ops.score_batch_t (the
-    score_t kernel on the card, its plain version on the CPU).
-
-    cand_k: optional candidate cap. Only the batch's top-cand_k is merged;
-    the merge is exact when the post-merge k-th score strictly exceeds the
-    cand_k-th batch score (every batch element that could displace the
-    state was among the candidates; equal scores never displace). That
-    check is one device flag brought to the host; where it fails (state
-    not yet full, or a tie at the boundary) the step takes the batch's full
-    top-k instead, as the reference's `lax.cond` does. counts: optional
-    dict; the step adds 1 to "exact" or "fallback" (cand_k steps only)."""
-    sc = score_ops.score_batch_t(packed, popcnt, y_padded, y_sum,
-                                 n_used=n_used, min_count=min_count,
-                                 precision=precision)
-    k = state.scores.shape[1]
-
-    def full_merge():
-        v, i = topk_ops.blocked_top_k(sc, k, block=block)
-        return _merge(state, v, row_lo[i], row_hi[i])
-
-    if not cand_k or cand_k >= k:
-        return full_merge()
-    v, i = topk_ops.blocked_top_k(sc, cand_k, block=block)
-    merged = _merge(state, v, row_lo[i], row_hi[i])
-    exact = bool((merged.scores[:, -1] > v[:, -1]).all())    # the one sync
-    _count(counts, "exact" if exact else "fallback")
-    return merged if exact else full_merge()
 
 
 def _clear_buffer(st: BufferedTopKState, rows=slice(None)) -> None:
@@ -497,68 +446,6 @@ def scan_step_compact(state: BufferedTopKState, packed, popcnt, row_lo,
         counts=counts)
     if prev is not None:
         apply_pending(state, prev)
-    return state
-
-
-def scan_step_buffered(state: BufferedTopKState, packed, popcnt, row_lo,
-                       row_hi, y_padded, y_sum, *, n_used: int,
-                       min_count: int, block: int = 16, cand_c: int = 512,
-                       cand_k: int = 2048, precision: str = "default",
-                       counts: dict | None = None) -> BufferedTopKState:
-    """One streamed batch -> the buffered top-k state, updated in place
-    (port of kmersgwas_tpu/ops/scanstep.py:176-230). Arguments as
-    scan_step; the buffer capacity must be a multiple of cand_c, and
-    cand_c <= R.
-
-    The full scores and their block maxima come from score_batch_t_bmax
-    (the score_bmax kernel on the card; it writes the contiguous 16-lane
-    block maxima that top_k_from_bmax reads, so the reference's
-    `_scores_and_bmax`, which builds strided ones for Mosaic, has no
-    counterpart here). The batch's top cand_c is appended to the buffer
-    when that is exact in EVERY column (the extraction proved its set and
-    its cand_c-th value is below thresh: nothing left out can ever beat
-    the k-th score) and the buffer has room; otherwise the exact wide
-    merge of state + buffer + batch runs (`_flush_merge`) and thresh
-    rises to the new k-th score. The decision is one flag brought to the
-    host. counts: optional dict; the step adds 1 to "wide" (appended) or
-    "fallback" (merged)."""
-    cap = state.buf_v.shape[1]
-    assert cap % cand_c == 0 and cand_c <= packed.shape[0]
-    sc, bmax = score_ops.score_batch_t_bmax(
-        packed, popcnt, y_padded, y_sum, n_used=n_used,
-        min_count=min_count, block=block, precision=precision)
-    v, i, v_exact = topk_ops.top_k_from_bmax(sc, bmax, cand_c)
-    can_buffer = state.buf_n + cand_c <= cap and bool(
-        (v_exact.all() & (v[:, -1] < state.thresh).all()).item())
-    if can_buffer:
-        il = i.long().clamp(max=row_lo.shape[0] - 1)  # -inf pad lanes
-        n0 = state.buf_n
-        state.buf_v[:, n0:n0 + cand_c] = v
-        state.buf_lo[:, n0:n0 + cand_c] = row_lo[il]
-        state.buf_hi[:, n0:n0 + cand_c] = row_hi[il]
-        state.buf_n = n0 + cand_c
-        _count(counts, "wide")
-        return state
-    state.scores, state.row_lo, state.row_hi = _flush_merge(
-        state.scores, state.row_lo, state.row_hi, state.buf_v,
-        state.buf_lo, state.buf_hi, sc, bmax, row_lo, row_hi, cand_k, block)
-    _clear_buffer(state)
-    state.buf_n = 0
-    state.thresh = state.scores[:, -1].clone()
-    _count(counts, "fallback")
-    return state
-
-
-def scan_step_buffered_multi(state: BufferedTopKState, packed, popcnt,
-                             row_lo, row_hi, y_padded, y_sum, **kw
-                             ) -> BufferedTopKState:
-    """B batches in one call (port of kmersgwas_tpu/ops/scanstep.py:
-    665-690): packed (B, R, W32), popcnt/row_lo/row_hi (B, R); the same
-    state as B sequential scan_step_buffered calls, which is what it
-    runs. Keywords as scan_step_buffered."""
-    for b in range(packed.shape[0]):
-        scan_step_buffered(state, packed[b], popcnt[b], row_lo[b],
-                           row_hi[b], y_padded, y_sum, **kw)
     return state
 
 

@@ -24,7 +24,6 @@ from __future__ import annotations
 import atexit
 import math
 import os
-from collections import deque
 
 import numpy as np
 import torch
@@ -46,7 +45,6 @@ from . import sharding as shard_mod
 # the score_tilemax kernel's tile, on the card and on the CPU (the
 # reference's 2048, multihost.py:282, is TPU tuning; its CPU path uses 128)
 TILE_ROWS = _cuda.TILE_ROWS
-_INFLIGHT = 4      # bounded dispatch window (see pipeline/scan.py)
 _PREFETCH = 2
 
 
@@ -257,7 +255,6 @@ def run_distributed_scan(table_base: str, pheno_accessions, pheno_values,
     batches = feed_mod.device_batches(feed, dev, local_rows, reader.w32,
                                       depth=_PREFETCH)
     empty = None
-    inflight: deque = deque()
     next_pos = start_row
     step_i = 0
     while True:
@@ -284,17 +281,16 @@ def run_distributed_scan(table_base: str, pheno_accessions, pheno_values,
             state, *batch, yp, ysum, n_used=n_used, min_count=min_count,
             cand_k=cand_k, tile_rows=TILE_ROWS, cand_c=cand_c,
             cand_c2=cand_c2, cand_q=cand_q, precision=score_precision)
-        inflight.append(step_event(dev))
-        if len(inflight) > _INFLIGHT:
-            drain(inflight.popleft())
         step_i += 1
         if my_ckpt and step_i % checkpoint_every == 0:
             ckpt.save_distributed_state(my_ckpt, state, next_pos,
                                         n_tested_local, stream_tag, meta)
         if progress is not None:
             progress(r)
-    while inflight:
-        drain(inflight.popleft())
+    # the step bounds the dispatch: it waits on the flags of the batch
+    # before it, so the host is never more than one batch ahead of the
+    # card; the last batch's kernel ends before the gather
+    drain([step_event(dev)])
 
     per_pheno = shard_mod.finalize_distributed(state)
     caps = [first_phenotype_top if (j == 0 and first_phenotype_top)

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import math
 import os
-from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -49,10 +48,6 @@ TILE_ROWS = _cuda.TILE_ROWS
 CAND_W = 256
 BUF_CAP = 12288              # lcm(256, 64) * 48
 CAND_Q = 64
-# bounded dispatch: wait for the step from _INFLIGHT batches ago before
-# starting another, so queued batches' inputs cannot pile up (a 400M-row
-# scan of the JAX package was OOM-killed without this bound)
-_INFLIGHT = 4
 _PREFETCH = 2
 
 
@@ -206,11 +201,11 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     package and under any mesh.
 
     Traced (utils.span), the job span `associate` holds `associate_stream`
-    (the feed's spans, and per batch `scan_step`: the step's spans and
-    `drain`; `checkpoint_save`), `associate_finalize`, `associate_fetch`
-    (`associate_winners`, the winners' union by resolve_winners;
-    `fetch_rows`) and `select_candidates`; `timings` and `steps["step_s"]`
-    are their durations."""
+    (the feed's spans, per batch `scan_step`: the step's spans;
+    `checkpoint_save`; and at the end `drain`), `associate_finalize`,
+    `associate_fetch` (`associate_winners`, the winners' union by
+    resolve_winners; `fetch_rows`) and `select_candidates`; `timings` and
+    `steps["step_s"]` are their durations."""
     dev, mesh = shard_mod.home_device(mesh, device)
     n_devices = mesh.size
     reader = KmersTableReader(table_base, names_to_use=pheno_accessions)
@@ -243,7 +238,6 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     pad_to = -(-batch_size // quantum) * quantum
     cand_k = min(max(256, k_eff // 8), k_eff, pad_to // n_devices)
 
-    dt = None
     if dtable_cache:
         from ..core import dtable as dt_mod
         nhash = dt_mod.names_hash_of(reader.names)
@@ -283,7 +277,9 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
     with span("associate_stream") as stream_span:
         next_pos = start_row
         batch_i = 0
-        inflight: deque = deque()
+        # the step bounds the dispatch: it waits on the flags of the batch
+        # before it, so the host is never more than one batch ahead of
+        # each card
         for r, batch, pos_after, pats in batches:
             with span("scan_step") as step_span:
                 n_tested += r
@@ -291,9 +287,6 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
                     patterns.add(pats)
                 step_fn(states, *shard_mod.shard_batch(mesh, batch), yp_s,
                         ysum_s)
-                inflight.append([step_event(d) for d in mesh.distinct()])
-                if len(inflight) > _INFLIGHT:
-                    drain(inflight.popleft())
             steps["step_s"].append(step_span.seconds)
             batch_i += 1
             next_pos = pos_after
@@ -305,8 +298,8 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
             timer.add(r)
             if progress is not None:
                 progress(r)
-        while inflight:
-            drain(inflight.popleft())
+        # the last batch's kernels end inside the stream's time
+        drain([step_event(d) for d in mesh.distinct()])
         timer.done()
     timings["stream"] = stream_span.seconds
 
@@ -314,12 +307,12 @@ def associate(table_base: str, pheno_accessions, pheno_values: np.ndarray,
         per_pheno = shard_mod.finalize_sharded_buffered(states)
     timings["finalize"] = fin_span.seconds
 
-    # resolve winner rows -> k-mer codes + packed PA: chunked-run reads from
-    # the dtable (pre-squeezed) when present, else the raw table (pass 2)
+    # resolve winner rows -> k-mer codes + packed PA: positioned reads of
+    # the raw table (pass 2)
     with span("associate_fetch") as fetch_span:
         with span("associate_winners"):
             all_rows, slots = resolve_winners(per_pheno, dev)
-        kmer_of_row, pa_of_row = fetch_rows(reader, all_rows, dt=dt)
+        kmer_of_row, pa_of_row = fetch_rows(reader, all_rows)
     timings["fetch"] = fetch_span.seconds
 
     names = list(pheno_names)
@@ -520,44 +513,23 @@ def _pread_gather(path: str, base_offset: int, row_bytes: int,
 
 # copy of kmersgwas_tpu.pipeline.scan.fetch_rows, traced
 @span("fetch_rows")
-def fetch_rows(reader: KmersTableReader, rows: np.ndarray, dt=None):
+def fetch_rows(reader: KmersTableReader, rows: np.ndarray):
     """Fetch winner table rows -> (RowLookup kmers, RowLookup packed-PA).
 
     PA values are squeezed used-column uint64 words (ceil(n_used/64)),
     ready for PLINK export. `rows` must be sorted unique absolute .table
-    row indices.
+    row indices. One positioned read per row of the raw table (or a
+    streamed covering span, _pread_gather), squeezed by the native
+    library, or by numpy in chunks where it cannot build.
 
-    dt: optional core.dtable.DTableReader already holding the same
-    accession subset — winners are then resolved from the dtable's
-    pre-squeezed planes (no raw-table reads, no squeeze work), keyed back
-    through its src_rows section.
-
-    Traced: the span `fetch_rows`; the counters `fetch.rows` (rows asked
-    for) and `fetch.dtable` (of them, rows read from the dtable)."""
+    Traced: the span `fetch_rows`; the counter `fetch.rows` (rows asked
+    for)."""
     rows = np.asarray(rows, np.int64)
     n64 = (reader.n_used + 63) // 64
     count("fetch.rows", len(rows))
     if len(rows) == 0:
         empty = RowLookup(rows, np.empty((0, n64), "<u8"))
         return RowLookup(rows, np.empty(0, np.uint64)), empty
-    if dt is not None and table_mod._native_squeeze_available():
-        # raw route wins with the native squeeze: 1 IO/row + a C pass vs
-        # the dtable's 2 sections (planes + kmers) at 2 IOs/row
-        dt = None
-    if dt is not None:
-        src = dt.src_rows
-        idx = np.searchsorted(src, rows)
-        if (idx < len(src)).all() and \
-                (np.asarray(src[np.minimum(idx, len(src) - 1)]) == rows).all():
-            count("fetch.dtable", len(rows))
-            kmers = _pread_gather(dt.path, dt.kmers.offset, 8,
-                                  idx).view("<u8")[:, 0]
-            w32 = dt.hdr.w32
-            planes = _pread_gather(dt.path, dt.planes.offset, w32 * 4, idx)
-            pa = planes.view("<u8")[:, :n64]
-            return (RowLookup(rows, kmers.astype(np.uint64)),
-                    RowLookup(rows, np.ascontiguousarray(pa)))
-        # else: dtable doesn't cover these rows (stale) — fall through
     wf = reader.header.row_words()
     raw = _pread_gather(reader.base + ".table",
                         formats.TableHeader.HEADER_BYTES, (1 + wf) * 8,

@@ -7,12 +7,10 @@ Default mode, per batch of R rows (default 2^21) at N=1008, P=101,
 K=10001: the score_bmax kernel alone (score_batch_t_bmax: scores and
 16-lane block maxima), the score_t kernel alone, the block-max extraction
 alone (top_k_from_bmax at c = 512 and 2048) and its parts, stable top-k
-over small widths, a flush-sized top-k, and the full buffered step
-(ops/scanstep.scan_step_buffered, cand_c 512) on one batch over and over.
-`--compact` times the `cand_c` step (the score_tilemax kernel, cand_c 128)
-over 12 distinct batches after a warm-up; `--steady` the append path
-alone (thresh forced to 1e30, so every batch appends) in `cand_c` and
-`cand_w` modes. Batches are uniform random bits from numpy's generator
+over small widths and a flush-sized top-k. `--compact` times the `cand_c`
+step (the score_tilemax kernel, cand_c 128) over 12 distinct batches
+after a warm-up; `--steady` the append path alone (thresh forced to 1e30,
+so every batch appends) in `cand_c` and `cand_w` modes. Batches are uniform random bits from numpy's generator
 with seed 0, as in the JAX tool.
 
 One JSON line per measurement on stdout: {"tool", "name", "ms",
@@ -88,7 +86,7 @@ def main(device="cuda", rows=1 << 21, n=1008, p=101, k=10001,
          iters=30) -> list:
     dev, rng, yp, ysum, w32 = setup(device, rows, n, p)
     rep = Report(dev, rows)
-    packed, popcnt, lo, hi = make_batch(rng, rows, w32, 0, dev)
+    packed, popcnt, _, _ = make_batch(rng, rows, w32, 0, dev)
     kw = dict(n_used=n, min_count=MIN_COUNT)
     rep("score+bmax kernel", timeit(lambda: score_ops.score_batch_t_bmax(
         packed, popcnt, yp, ysum, **kw), dev, iters), scored=True)
@@ -110,13 +108,6 @@ def main(device="cuda", rows=1 << 21, n=1008, p=101, k=10001,
     x = torch.randn(p, k + 4096, device=dev)
     rep(f"flush top_k ({p},{k + 4096}) k={k}", timeit(
         lambda: topk_ops.top_k(x, k), dev, max(1, iters // 3)))
-    del sc, bmax, x
-    state = ss.init_buffered_state(p, k, 512 * 8, dev)
-    step_kw = dict(kw, cand_c=min(512, rows), cand_k=2048)
-    ss.scan_step_buffered(state, packed, popcnt, lo, hi, yp, ysum, **step_kw)
-    rep("buffered step", timeit(lambda: ss.scan_step_buffered(
-        state, packed, popcnt, lo, hi, yp, ysum, **step_kw), dev, iters),
-        scored=True)
     return rep.lines
 
 

@@ -68,7 +68,11 @@ PREFIX = "kgt::"
 class SpanRecord(NamedTuple):
     """One finished span. Times are Unix-epoch nanoseconds, the clock
     torch.profiler's events are converted to (its trace start plus an
-    event's offset), so spans and device events lie on one timeline."""
+    event's offset), so spans and device events lie on one timeline. Each
+    is the recorder's anchor (the wall clock read once, when the job span
+    opened or the tracing() session started) plus the monotonic clock's
+    time since, so every span of a job nests as the monotonic clock
+    orders it, whatever the wall clock does meanwhile."""
     name: str                 # without PREFIX
     start_ns: int
     end_ns: int
@@ -110,6 +114,12 @@ class Recorder:
         self.sessions = 0               # open tracing() contexts
         self.carriers = 0               # worker threads under carry()
         self.trace = Trace()
+        self.reanchor()
+
+    def reanchor(self) -> None:
+        """Pair the wall clock with the monotonic clock, once: the spans
+        that open from now on are placed on the wall clock from it."""
+        self.anchor = (time.time_ns(), time.perf_counter_ns())
 
     def reset(self) -> None:
         with self.lock:
@@ -189,10 +199,12 @@ class span:
         if self.job and self._job_id is None:
             if not rec.sessions:
                 rec.reset()
+            rec.reanchor()
             self._job_id = self._id
         st.append(self)
-        self._wall = time.time_ns()
+        wall, mono = rec.anchor
         self._t0 = time.perf_counter_ns()
+        self._wall = wall + (self._t0 - mono)
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -276,6 +288,7 @@ def tracing(path: str | None = None):
     with RECORDER.lock:
         if not RECORDER.sessions:
             RECORDER.trace = Trace()
+            RECORDER.reanchor()
         RECORDER.sessions += 1
     try:
         yield
@@ -310,10 +323,11 @@ def write_chrome_trace(path: str, trace: Trace) -> None:
 
 @span("drain")
 def drain(event) -> None:
-    """Backpressure point of the bounded dispatch pipeline: wait until the
-    device has completed the step that recorded `event` (a few batches
-    back), so no more than a fixed number of batches' inputs stay alive.
-    `event` may be a list (one event per device of a mesh)."""
+    """Wait until the device has completed the work queued before `event`
+    (step_event's). The kinship driver's bounded dispatch waits so on the
+    batch a few batches back, so no more than a fixed number of batches'
+    inputs stay alive; the scan drivers wait so once, after their last
+    step. `event` may be a list (one event per device of a mesh)."""
     for ev in event if isinstance(event, list) else (event,):
         if ev is not None:
             ev.synchronize()

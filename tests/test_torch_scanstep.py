@@ -3,10 +3,10 @@ the JAX package on the CPU: tie-heavy streams (the streams of
 tests/test_ops.py's cand_w and col_group tests, with dyadic phenotypes so
 both sides' scores are bit-equal) must end in the same top-k — scores AND
 rows — as the JAX package's plain `scan_step`, with the narrow, wide and
-fallback branches all engaged; the port's plain `scan_step` must equal the
-JAX one after every batch, through its exact and its fallback branch; and
-a JAX mid-stream state handed to the port (kmersgwas_tpu_torch.convert)
-must end where JAX ends."""
+fallback branches all engaged; settled and flushed after every batch,
+the step must equal the JAX plain step's state batch for batch; and a JAX
+mid-stream state handed to the port (kmersgwas_tpu_torch.convert) must
+end where JAX ends."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -55,43 +55,6 @@ def jax_plain_final(y, batches, k):
                                                     np.asarray(st.row_hi))
 
 
-@pytest.mark.parametrize("tie_column,cand_k", [(None, 8), (1, 8), (1, None)])
-def test_plain_scan_step_matches_jax_after_every_batch(tie_column, cand_k):
-    """The plain step (score_batch_t + blocked top-k + merge, the cand_k
-    candidate cap with its exactness check) against JAX `scan_step(kernel=
-    "xla")`: equal scores and rows after every batch; with cand_k both the
-    exact and the fallback branch run."""
-    y, batches = stream(27, p=3, n_batches=24, tie_column=tie_column)
-    k = 16
-    jyp, jysum = jscore.prepare_phenotypes(y, N_PAD)
-    jst = jtopk.init_state(3, k)
-    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
-    st = topk.TopKState(torch.full((3, k), float("-inf")),
-                        torch.zeros((3, k), dtype=torch.int32),
-                        torch.zeros((3, k), dtype=torch.int32))
-    counts = {}
-    for b in batches:
-        packed, pc, lo, hi = b
-        jst = jss.scan_step(jst, jnp.asarray(packed), jnp.asarray(pc),
-                            jnp.asarray(lo), jnp.asarray(hi), jyp, jysum,
-                            n_used=N, min_count=MIN_COUNT, kernel="xla",
-                            cand_k=cand_k)
-        st = scanstep.scan_step(st, *port_batch(b), yp, ysum, n_used=N,
-                                min_count=MIN_COUNT, cand_k=cand_k,
-                                counts=counts)
-        np.testing.assert_array_equal(st.scores.numpy(),
-                                      np.asarray(jst.scores))
-        np.testing.assert_array_equal(st.row_lo.numpy(),
-                                      np.asarray(jst.row_lo))
-        np.testing.assert_array_equal(st.row_hi.numpy(),
-                                      np.asarray(jst.row_hi))
-    if cand_k:
-        assert counts.get("exact", 0) >= 3, counts
-        assert counts.get("fallback", 0) >= 1, counts
-    else:
-        assert not counts
-
-
 def port_batch(b):
     packed, pc, lo, hi = b
     return (bitplanes.as_planes(packed), torch.from_numpy(pc),
@@ -115,9 +78,10 @@ def _prep(y):
     return yp, y.astype(np.float64).sum(0).astype(np.float32)
 
 
+@pytest.mark.parametrize("tie_column", [None, 1])
 @pytest.mark.parametrize("tile_rows", [64, 16])
-def test_step_stream_matches_jax(tile_rows):
-    y, batches = stream(33, p=3, n_batches=30)
+def test_step_stream_matches_jax(tile_rows, tie_column):
+    y, batches = stream(33, p=3, n_batches=30, tie_column=tie_column)
     want_s, want_r = jax_plain_final(y, batches, k=16)
     counts = {}
     st = scanstep.init_buffered_state(3, 16, buf_cap=24, device="cpu")
@@ -127,7 +91,41 @@ def test_step_stream_matches_jax(tile_rows):
     np.testing.assert_array_equal(got_r, want_r)
     assert counts.get("narrow", 0) >= 3, counts
     assert counts.get("fallback", 0) >= 1, counts
-    assert counts.get("wide", 0) >= 1, counts
+    # the tied stream's guards never need the wide append
+    assert counts.get("wide", 0) >= (tie_column is None), counts
+
+
+@pytest.mark.parametrize("tie_column,cand_k", [(None, 8), (1, 8), (1, None)])
+def test_step_matches_jax_plain_after_every_batch(tie_column, cand_k):
+    """The `cand_w` step, settled and flushed after every batch, against
+    the JAX package's plain `scan_step(kernel="xla")` (cand_k its
+    candidate cap, or none): the same top-k, scores and rows, after every
+    batch, ties included; the step's narrow and fallback branches both
+    run."""
+    y, batches = stream(27, p=3, n_batches=24, tie_column=tie_column)
+    k = 16
+    jyp, jysum = jscore.prepare_phenotypes(y, N_PAD)
+    jst = jtopk.init_state(3, k)
+    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
+    st = scanstep.init_buffered_state(3, k, buf_cap=24, device="cpu")
+    counts = {}
+    for b in batches:
+        packed, pc, lo, hi = b
+        jst = jss.scan_step(jst, jnp.asarray(packed), jnp.asarray(pc),
+                            jnp.asarray(lo), jnp.asarray(hi), jyp, jysum,
+                            n_used=N, min_count=MIN_COUNT, kernel="xla",
+                            cand_k=cand_k)
+        scanstep.scan_step_compact(st, *port_batch(b), yp, ysum,
+                                   counts=counts,
+                                   **dict(_step_kw(), cand_k=cand_k or k))
+        scanstep.settle(st)
+        got = scanstep.flush_buffered(st)
+        for name in ("scores", "row_lo", "row_hi"):
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          np.asarray(getattr(jst, name)))
+    assert sum(counts.values()) - counts.get("flush", 0) == len(batches)
+    assert counts.get("narrow", 0) >= 3, counts
+    assert counts.get("fallback", 0) >= 1, counts
 
 
 def test_col_group_stream_matches_jax():
@@ -418,80 +416,3 @@ def test_topk_init_state_and_update_match_jax(rows):
         for name, a in zip(st._fields, st):
             np.testing.assert_array_equal(a.numpy(),
                                           np.asarray(getattr(jst, name)))
-
-
-def buffered_streams(tie_column):
-    y, batches = stream(41, p=3, n_batches=24, tie_column=tie_column)
-    kw = dict(n_used=N, min_count=MIN_COUNT, cand_c=8, cand_k=12)
-    return y, batches, kw
-
-
-@pytest.mark.parametrize("tie_column", [None, 1])
-def test_scan_step_buffered_matches_jax(tie_column):
-    """scan_step_buffered against JAX `scan_step_buffered(kernel="xla")`
-    (K=16, cand_c 8, capacity 32), exactly: after every batch the flushed
-    top-k (flush_buffered) is equal. Where both sides took the same branch
-    the buffers are equal too; the branches may differ, since the port's
-    block maxima are contiguous 16-lane blocks and the reference's XLA
-    route strided ones, so each side's extraction may prove exactness on
-    different batches (both sides are exact either way). Both branches
-    run."""
-    y, batches, kw = buffered_streams(tie_column)
-    jyp, jysum = jscore.prepare_phenotypes(y, N_PAD)
-    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
-    jst = jss.init_buffered_state(3, 16, buf_cap=32)
-    st = scanstep.init_buffered_state(3, 16, buf_cap=32, device="cpu")
-    counts, same = {}, 0
-    for b in batches:
-        packed, pc, lo, hi = b
-        jn0 = int(jst.buf_n)
-        jst = jss.scan_step_buffered(jst, jnp.asarray(packed),
-                                     jnp.asarray(pc), jnp.asarray(lo),
-                                     jnp.asarray(hi), jyp, jysum,
-                                     kernel="xla", **kw)
-        before = dict(counts)
-        scanstep.scan_step_buffered(st, *port_batch(b), yp, ysum,
-                                    counts=counts, **kw)
-        port_buffered = counts.get("wide", 0) > before.get("wide", 0)
-        if port_buffered == (int(jst.buf_n) > jn0):
-            same += 1
-            assert st.buf_n == int(jst.buf_n)
-            for name in ("buf_v", "buf_lo", "buf_hi", "scores", "thresh"):
-                np.testing.assert_array_equal(
-                    getattr(st, name).numpy(), np.asarray(getattr(jst, name)))
-        want = jss.flush_buffered(jst)
-        got = scanstep.flush_buffered(st)
-        for name in ("scores", "row_lo", "row_hi"):
-            np.testing.assert_array_equal(getattr(got, name).numpy(),
-                                          np.asarray(getattr(want, name)))
-    assert counts.get("wide", 0) >= 3 and counts.get("fallback", 0) >= 1, \
-        counts
-    assert same >= len(batches) // 2
-
-
-def test_scan_step_buffered_multi_equals_sequential_and_jax():
-    """scan_step_buffered_multi over (B, R, ...) stacks: the state of B
-    sequential scan_step_buffered calls, field for field, and after the
-    flush the JAX scan_step_buffered_multi's top-k."""
-    y, batches, kw = buffered_streams(None)
-    yp, ysum = (torch.from_numpy(a) for a in _prep(y))
-    stacked = [np.stack(x) for x in zip(*batches)]
-    multi = scanstep.scan_step_buffered_multi(
-        scanstep.init_buffered_state(3, 16, buf_cap=32, device="cpu"),
-        *port_batch(stacked), yp, ysum, **kw)
-    seq = scanstep.init_buffered_state(3, 16, buf_cap=32, device="cpu")
-    for b in batches:
-        scanstep.scan_step_buffered(seq, *port_batch(b), yp, ysum, **kw)
-    assert multi.buf_n == seq.buf_n
-    for name in ("scores", "row_lo", "row_hi", "buf_v", "buf_lo", "buf_hi",
-                 "thresh"):
-        np.testing.assert_array_equal(getattr(multi, name).numpy(),
-                                      getattr(seq, name).numpy())
-    jyp, jysum = jscore.prepare_phenotypes(y, N_PAD)
-    want = jss.flush_buffered(jss.scan_step_buffered_multi(
-        jss.init_buffered_state(3, 16, buf_cap=32),
-        *(jnp.asarray(x) for x in stacked), jyp, jysum, kernel="xla", **kw))
-    got = scanstep.flush_buffered(multi)
-    for name in ("scores", "row_lo", "row_hi"):
-        np.testing.assert_array_equal(getattr(got, name).numpy(),
-                                      np.asarray(getattr(want, name)))

@@ -32,6 +32,7 @@ from kmersgwas_tpu.pipeline import checkpoint as jckpt
 from kmersgwas_tpu.pipeline import kinship as jkm
 from kmersgwas_tpu.pipeline import scan as jscan
 from kmersgwas_tpu_torch.cli.__main__ import main as port_cli
+from kmersgwas_tpu_torch.ops import kinship as kin_ops
 from kmersgwas_tpu_torch.ops import score, topk
 from kmersgwas_tpu_torch.parallel import sharding as sh
 from kmersgwas_tpu_torch.pipeline import checkpoint as pckpt
@@ -71,13 +72,22 @@ def finalized_equal(got, want, rtol):
         np.testing.assert_allclose(gv, wv, rtol=rtol)
 
 
-def test_legacy_step_one_batch(mesh, jmesh):
-    """build_sharded_scan_step on one 4096-row batch: the JAX package's
-    8-device step, the port's 8 shards (precision "highest") and the
-    port's single-device topk.update keep the same rows in the same
-    order. Gaussian y: the CPU's matmul sums a 512-row shard's products in
-    another order than a 4096-row batch's, so the single-device scores
-    are held at rtol 1e-6."""
+def mesh_step(mesh, n, mc, k):
+    """The port's mesh step (`cand_w` mode, 16 candidates a shard, a
+    32-slot buffer) at precision "highest"."""
+    return sh.build_sharded_scan_step_compact(
+        mesh, n_used=n, min_count=mc, cand_k=k, tile_rows=pscan.TILE_ROWS,
+        cand_w=16, cand_q=8, precision="highest")
+
+
+def test_mesh_step_one_batch_equals_jax(mesh, jmesh):
+    """build_sharded_scan_step_compact on one 4096-row batch, finalized
+    across the shards: the JAX package's 8-device plain step, the port's
+    8 shards (precision "highest") and the port's single-device
+    topk.update keep the same rows in the same order. Gaussian y: the
+    CPU's matmul sums a 512-row shard's products in another order than a
+    4096-row batch's, so the single-device scores are held at rtol
+    1e-6."""
     rng = np.random.default_rng(0)
     r, n, p, k, mc = 4096, 50, 3, 40, 2
     bits, packed, y, n_pad = make(rng, r, n, p)
@@ -91,11 +101,10 @@ def test_legacy_step_one_batch(mesh, jmesh):
         jmesh, [packed, popcnt, lo, hi]), *jsh.replicate(jmesh, jyp, jys)))
 
     yp, ysum = score.prepare_phenotypes(y, n_pad, "cpu")
-    step = sh.build_sharded_scan_step(mesh, n_used=n, min_count=mc, k=k,
-                                      precision="highest")
-    st = step(topk.init_state(p, k), *sh.shard_batch(
+    states = sh.init_sharded_buffered_state(mesh, p, k, 32)
+    mesh_step(mesh, n, mc, k)(states, *sh.shard_batch(
         mesh, [packed, popcnt, lo, hi]), *sh.replicate(mesh, yp, ysum))
-    got = topk.finalize(st)
+    got = sh.finalize_sharded_buffered(states)
     finalized_equal(got, want, 1e-5)
 
     pc = torch.from_numpy(popcnt)
@@ -110,15 +119,14 @@ def test_legacy_step_one_batch(mesh, jmesh):
     finalized_equal(got, one, 1e-6)
 
 
-def test_legacy_step_multiple_updates(mesh, jmesh):
-    """Three batches through the legacy step: the kept rows are the f64
-    brute force's top-k, and the JAX package's."""
+def test_mesh_step_multiple_updates_equals_jax(mesh, jmesh):
+    """Three batches through the mesh step: the kept rows are the f64
+    brute force's top-k, and the JAX package's plain mesh step's."""
     rng = np.random.default_rng(1)
     n, p, k = 30, 2, 16
-    step = sh.build_sharded_scan_step(mesh, n_used=n, min_count=1, k=k,
-                                      precision="highest")
+    step = mesh_step(mesh, n, 1, k)
     jstep = jsh.build_sharded_scan_step(jmesh, n_used=n, min_count=1, k=k)
-    st = topk.init_state(p, k)
+    states = sh.init_sharded_buffered_state(mesh, p, k, 32)
     jst = jtopk.TopKState(*jsh.replicate(jmesh, *jtopk.init_state(p, k)))
     seen = []
     for it in range(3):
@@ -131,12 +139,12 @@ def test_legacy_step_multiple_updates(mesh, jmesh):
         popcnt = bits.sum(axis=1).astype(np.float32)
         rows = np.arange(it * 1024, (it + 1) * 1024)
         lo, hi = topk.encode_rows(rows)
-        st = step(st, *sh.shard_batch(mesh, [packed, popcnt, lo, hi]), yp,
-                  ysum)
+        step(states, *sh.shard_batch(mesh, [packed, popcnt, lo, hi]), yp,
+             ysum)
         jst = jstep(jst, *jsh.shard_batch(jmesh, [packed, popcnt, lo, hi]),
                     *jy)
         seen.append((bits, rows))
-    got = topk.finalize(st)
+    got = sh.finalize_sharded_buffered(states)
     finalized_equal(got, jtopk.finalize(jst), 1e-5)
     allbits = np.concatenate([b for b, _ in seen]).astype(np.float64)
     allrows = np.concatenate([r for _, r in seen])
@@ -153,42 +161,46 @@ def test_legacy_step_multiple_updates(mesh, jmesh):
 
 @pytest.mark.parametrize("form", ["step", "accumulate"])
 def test_sharded_kinship_equals_jax(mesh, jmesh, form):
-    """build_sharded_kinship_step (exact rows: 2048 = 8 x 256) and
-    build_sharded_kinship_accumulate (2000 rows padded to 8 x 250, the
-    padding masked out) equal the JAX package's, bit for bit."""
+    """KinshipAccumulator(mesh=) over 8 shards against the JAX package's
+    build_sharded_kinship_step (exact rows: 2048 = 8 x 256; the total it
+    returns) and build_sharded_kinship_accumulate (2000 rows, 8 x 250;
+    its per-shard partials summed): the port's batch is padded to 2048
+    rows of ones and only its first 2000 are counted, so its last shard
+    masks 48 padding rows. The total equals the JAX package's, bit for
+    bit."""
     rng = np.random.default_rng(2)
     n = 40
+    acc = kin_ops.KinshipAccumulator(n_used=n, n_pad=128, mesh=mesh)
     if form == "step":
         bits, packed, _, n_pad = make(rng, 2048, n, 1)
-        acc = sh.build_sharded_kinship_step(mesh)(
-            torch.zeros((n_pad, n_pad), dtype=torch.int32),
-            *sh.shard_batch(mesh, [packed]))
+        acc.add(torch.from_numpy(packed.view(np.int32)))
         want = jsh.build_sharded_kinship_step(jmesh)(
             *jsh.replicate(jmesh, jnp.zeros((n_pad, n_pad), jnp.int32)),
             *jsh.shard_batch(jmesh, [packed]))
-        np.testing.assert_array_equal(acc.numpy(), np.asarray(want))
-        xnor = (2048 + acc.numpy()[:n, :n]) / 2.0
+        want = np.asarray(want).astype(np.int64)
         g = bits.astype(np.int64)
         expect = np.stack([(1 ^ g[:, i][:, None] ^ g).sum(axis=0)
                            for i in range(n)])
-        np.testing.assert_array_equal(xnor, expect)
     else:
         bits, packed, _, n_pad = make(rng, 2000, n, 1)
         valid = np.ones(2000, np.int8)
-        accs = sh.build_sharded_kinship_accumulate(mesh)(
-            [torch.zeros((n_pad, n_pad), dtype=torch.int32)
-             for _ in range(D)],
-            *sh.shard_batch(mesh, [packed, valid]))
+        padded = np.concatenate([packed, np.full((48, packed.shape[1]),
+                                                 0xFFFFFFFF, packed.dtype)])
+        acc.add(torch.from_numpy(padded.view(np.int32)), 2000)
         want = jsh.build_sharded_kinship_accumulate(jmesh)(
             jsh.shard_batch(jmesh, [np.zeros((D, n_pad, n_pad),
                                              np.int32)])[0],
             *jsh.shard_batch(jmesh, [packed, valid]))
-        np.testing.assert_array_equal(
-            np.stack([a.numpy() for a in accs]), np.asarray(want))
+        want = np.asarray(want).astype(np.int64).sum(axis=0)
         one = jkin.kinship_accumulate(jnp.zeros((n_pad, n_pad), jnp.int32),
                                       jnp.asarray(packed))
-        np.testing.assert_array_equal(sum(a.numpy() for a in accs),
-                                      np.asarray(one))
+        np.testing.assert_array_equal(want, np.asarray(one))
+        expect = None
+    acc.flush()
+    assert acc.n_rows == len(bits)
+    np.testing.assert_array_equal(acc.total, want[:n, :n])
+    if expect is not None:
+        np.testing.assert_array_equal((len(bits) + acc.total) / 2.0, expect)
 
 
 def test_shard_batch_views_and_padding(mesh):

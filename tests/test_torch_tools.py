@@ -23,8 +23,7 @@ def json_lines(text):
 
 
 @pytest.mark.parametrize("mode,names", [
-    ([], {"score+bmax kernel", "score kernel", "bmax extract c=512",
-          "buffered step"}),
+    ([], {"score+bmax kernel", "score kernel", "bmax extract c=512"}),
     (["--compact"], {"tilemax kernel"}),
     (["--steady"], {"append path cand_c tile=128",
                     "append path cand_w tile=128"}),
