@@ -23,8 +23,9 @@
 // Design. One launch, one block per (128-row tile, column chunk of up to
 // 128): the block scores its tile on the tensor cores (score_wgmma.cuh, the
 // body of K1's tile launch), and each warp reduces 8 columns at a time with
-// the butterfly top-3 of K1's tile launch (tile_top3.cuh), then counts the
-// lanes equal to the 2nd and 3rd values and above thresh (warp sums). Lane
+// the top-3 of K1's tile launch (tile_top3.cuh: warp max and min reductions
+// on ordered keys), then counts the lanes equal to the 2nd and 3rd values
+// and above thresh (warp sums). Lane
 // 0 writes one entry per column to each plane. Nothing else reaches device
 // memory: 9 x P x n_tiles x 4 B (57 MB at the flagship batch of 2,000,000
 // rows and P = 101). The TPU kernel's VMEM-resident and blocked output
@@ -35,9 +36,9 @@
 // the packed bits are read once (128 B per k-mer) and the planes written
 // once (0.02 ms each at the HBM rate). The product runs on the tensor
 // cores with the columns padded to 8. As in K1's tile launch
-// (score_topw.cu), the per-tile epilogue holds it above the bound more
-// than the product does; this one adds two warp sums per column to K1's,
-// and the plane stores are 4 B scattered writes.
+// (score_topw.cu), the body holds it above the bound more than the
+// per-tile epilogue does; this epilogue adds two warp sums per column to
+// K1's, and the plane stores are 4 B scattered writes.
 #include "score_wgmma.cuh"
 
 namespace kgt {

@@ -28,13 +28,15 @@
 // A fragments in registers, y streams through shared memory as bf16 (three
 // planes at "highest"), and the columns are padded to 8, not 64 (104 at
 // P = 101), in chunks of at most 128 at two blocks an SM. What holds it
-// above the bound is the per-tile epilogue more than the product: the
-// scores go through shared memory and every column's top-3 is a warp
-// butterfly of 5 shuffle rounds, per 128-row tile (chip_smoke.py phase 2
-// times the launch at N=1008 and at N=100, whose k loop is 8x shorter).
-// The epilogue does not overlap the next tile's products within a block;
-// the SM's second block covers part of it. Launch B reads the 3*n_tiles
-// candidates of its column nine times (L2-resident).
+// above the bound is the body more than the per-tile epilogue: on an H100
+// the launch takes ~1.67 ms at the flagship batch and K4's kernel, the
+// same body storing the score plane in place of the top-3, ~1.35 ms
+// (~0.96 against ~0.69 at N=100, whose k loop is 8x shorter; chip_smoke.py
+// phase 2 times both). The scores go through shared memory and every
+// column's top-3 is three rounds of two warp reductions (tile_top3.cuh),
+// per 128-row tile. The epilogue does not overlap the next tile's products
+// within a block; the SM's second block covers part of it. Launch B reads
+// the 3*n_tiles candidates of its column nine times (L2-resident).
 #include "score_topw.cuh"
 #include "score_wgmma.cuh"
 

@@ -6,7 +6,7 @@
 //      (score_wgmma.cuh) and writes, per (column, tile), the top-3 (score,
 //      batch lane) with the lowest lane winning ties, and the count of lanes
 //      scoring > thresh. A warp holds all 128 rows of a column, so both
-//      reductions are warp shuffles (tile_top3.cuh).
+//      reductions are warp reductions (tile_top3.cuh).
 //   topw_select_kernel: one block per (column, list) takes the exact top-W
 //      of its list's candidates by (score desc, lane asc) with a radix
 //      select on a 64-bit key, sorts them (bitonic, shared memory) and ANDs
@@ -35,19 +35,16 @@ cudaError_t launch_topw_tiles(
         int p, int nc, int n_cc, int planes, float n_used, float min_count,
         float* tile_v, int* tile_g, int* tile_cnt, cudaStream_t st);
 
-// 64-bit key ordered like (score desc, lane asc): the float's order-
-// preserving bit pattern above the complemented lane. Key 0 sorts below
+// 64-bit key ordered like (score desc, lane asc): the score's key
+// (tile_top3.cuh score_key) above the complemented lane. Key 0 sorts below
 // every real candidate and fills the sort buffer past W.
 __device__ __forceinline__ unsigned long long cand_key(float v, int g) {
-    unsigned u = __float_as_uint(v);
-    u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-    return ((unsigned long long)u << 32) | (unsigned)(~(unsigned)g);
+    return ((unsigned long long)score_key(v) << 32)
+           | (unsigned)(~(unsigned)g);
 }
 
 __device__ __forceinline__ float key_value(unsigned long long key) {
-    unsigned u = (unsigned)(key >> 32);
-    u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
-    return __uint_as_float(u);
+    return key_score((unsigned)(key >> 32));
 }
 
 __device__ __forceinline__ int key_lane(unsigned long long key) {

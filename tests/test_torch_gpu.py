@@ -25,11 +25,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def batch(rows, n, p, seed, dev, gaussian=False):
+def batch(rows, n, p, seed, dev, gaussian=False, ties=False):
     rng = np.random.default_rng(seed)
     n_pad = -(-n // 128) * 128
     bits = rng.integers(0, 2, size=(rows, n)).astype(np.uint8)
     bits[rows - rows // 8 - 5:] = 0                      # padding rows
+    if ties:
+        tie_rows(bits, rng)
     padded = np.zeros((rows, n_pad), np.uint8)
     padded[:, :n] = bits
     packed = bitplanes.as_planes(bitplanes.pack_bits_np(padded)).to(dev)
@@ -37,6 +39,32 @@ def batch(rows, n, p, seed, dev, gaussian=False):
          else np.round(rng.uniform(-8, 8, size=(n, p)) * 8) / 8)  # dyadic
     yp, ysum = score.prepare_phenotypes(y, n_pad, dev)
     return packed, bitplanes.popcount_rows(packed), yp, ysum
+
+
+def tie_rows(bits, rng):
+    """Rows that load the per-tile top-3 (csrc/tile_top3.cuh) with ties, in
+    place, in the first five 128-row tiles: runs of 1-4 equal rows; tile 1
+    all padding; tile 2's rows with 1-4 samples set (under min_count 5, so
+    the MAC filter scores them 0.0 in every column); tile 3 padding but
+    rows t, t + 32, t + 64, which one lane holds; in tile 4 rows r + 1 and
+    r + 32 equal to row r (ties across lanes and within one)."""
+    rows, n = bits.shape
+    assert rows >= 640
+    r = 0
+    while r < rows:
+        run = int(rng.integers(1, 5))
+        bits[r:r + run] = bits[r]
+        r += run
+    bits[128:384] = 0
+    for r in range(256, 384):
+        bits[r, rng.choice(n, size=int(rng.integers(1, 5)),
+                           replace=False)] = 1
+    one_lane = [397, 429, 461]
+    keep = bits[one_lane].copy()
+    bits[384:512] = 0
+    bits[one_lane] = keep
+    for r in range(512, 607, 5):
+        bits[[r + 1, r + 32]] = bits[r]
 
 
 @pytest.mark.parametrize("rows,n,p,w", [(1024, 100, 3, 16),
@@ -66,14 +94,16 @@ def test_kernels_equal_plain(cuda, rows, n, p, w, precision):
 
 @pytest.mark.parametrize("rows,n,p", [(1024, 100, 3), (4096, 1008, 101)])
 @pytest.mark.parametrize("precision", ["default", "highest"])
-def test_tilemax_kernel_equals_plain(cuda, rows, n, p, precision):
+@pytest.mark.parametrize("ties", [False, True])
+def test_tilemax_kernel_equals_plain(cuda, rows, n, p, precision, ties):
     """K3's nine planes equal the plain version's bit for bit (dyadic
     phenotypes), with runs of equal rows inside tiles so that the 2nd and
-    3rd values tie (n2, n3 > 1)."""
-    packed, pc, yp, ysum = batch(rows, n, p, rows + 3 * p, cuda)
-    packed.view(-1, 4, packed.shape[1])[: rows // 8, 1:] = \
-        packed.view(-1, 4, packed.shape[1])[: rows // 8, :1]
-    pc = bitplanes.popcount_rows(packed)
+    3rd values tie (n2, n3 > 1), and on `tie_rows`."""
+    packed, pc, yp, ysum = batch(rows, n, p, rows + 3 * p, cuda, ties=ties)
+    if not ties:
+        packed.view(-1, 4, packed.shape[1])[: rows // 8, 1:] = \
+            packed.view(-1, 4, packed.shape[1])[: rows // 8, :1]
+        pc = bitplanes.popcount_rows(packed)
     kw = dict(n_used=n, min_count=5, tile_rows=128, precision=precision)
     launches = score.score_batch_t_tilemax.launches
     sc = score.scores_t_plain(packed, pc, yp, ysum, n_used=n, min_count=5,
@@ -130,13 +160,15 @@ def test_tensor_core_kernels_equal_plain(cuda, p, precision):
 
 
 @pytest.mark.parametrize("precision", ["default", "highest"])
-def test_topw_lists_equal_the_top_w_of_the_score_plane(cuda, precision):
+@pytest.mark.parametrize("ties", [False, True])
+def test_topw_lists_equal_the_top_w_of_the_score_plane(cuda, precision,
+                                                       ties):
     """K1's top-W lists (its tile launch, then its select) equal the plain
     per-tile top-3 and select applied to K2's score plane for the same
-    dyadic batch: K1's epilogue against the plain one on the same scores
-    (both kernels on the tensor-core body, K2 through the score-plane
-    epilogue of csrc/score_plane.cu)."""
-    packed, pc, yp, ysum = batch(8192, 1008, 101, 11, cuda)
+    dyadic batch, also on `tie_rows`: K1's epilogue against the plain one
+    on the same scores (both kernels on the tensor-core body, K2 through
+    the score-plane epilogue of csrc/score_plane.cu)."""
+    packed, pc, yp, ysum = batch(8192, 1008, 101, 11, cuda, ties=ties)
     kw = dict(n_used=1008, min_count=5, precision=precision)
     ks, _ = score.score_batch_t_bmax(packed, pc, yp, ysum, **kw)
     q = torch.topk(ks, 16, dim=1).values[:, -1].contiguous()
@@ -668,8 +700,9 @@ def test_tile_reduce_instances_equal_plain(cuda, tr):
 
 
 @pytest.mark.parametrize("tile_rows,w", [(128, 8), (512, 128), (4096, 128)])
-def test_parity_kernel_equals_plain(cuda, tile_rows, w):
-    packed, pc, yp, ysum = batch(8192, 1008, 101, 5, cuda)
+@pytest.mark.parametrize("ties", [False, True])
+def test_parity_kernel_equals_plain(cuda, tile_rows, w, ties):
+    packed, pc, yp, ysum = batch(8192, 1008, 101, 5, cuda, ties=ties)
     kw = dict(n_used=1008, min_count=5, tile_rows=tile_rows, w=w)
     sc = score.scores_t_plain(packed, pc, yp, ysum, n_used=1008, min_count=5)
     q = torch.topk(sc, 16, dim=1).values[:, -1].contiguous()

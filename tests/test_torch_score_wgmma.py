@@ -2,8 +2,9 @@
 score_tilemax, K8 score_parity, and the score plane's K2 score_bmax, K4
 score_t and K5 score_rows; kmersgwas_tpu_torch/csrc/score_wgmma.cuh,
 score_plane.cu) on the CPU: its operand preparation, a torch emulation of
-its arithmetic and of the score plane's epilogues (K5's store walk
-included), and the wrappers' refusals. The kernels themselves run only on
+its arithmetic, of the score plane's epilogues (K5's store walk included)
+and of the per-tile top-3 of K1, K3 and K8 (csrc/tile_top3.cuh, round by
+round on ordered keys), and the wrappers' refusals. The kernels themselves run only on
 the card (tests/test_torch_gpu.py).
 
 The emulation reads the B operand the way the kernel's descriptors do
@@ -314,6 +315,112 @@ def test_emulated_parity_lists_equal_plain():
     want = score.parity_plain(*args, th, tile_rows=256, w=16, **kw)
     for a, b in zip((va, ga, vb, gb, ok), want):
         assert torch.equal(a, b)
+
+
+def score_keys(sc):
+    """The kernels' order-preserving 32-bit key of each score
+    (csrc/tile_top3.cuh score_key), as int64: key(a) > key(b) iff a > b."""
+    u = sc.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, 0xFFFFFFFF - u, u | 1 << 31)
+
+
+def key_scores(k):
+    """csrc/tile_top3.cuh key_score: the score whose key is k."""
+    u = torch.where(k >= 1 << 31, k & 0x7FFFFFFF, 0xFFFFFFFF - k)
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(
+        torch.int32).view(torch.float32)
+
+
+def emulate_tile_top3(sc):
+    """csrc/tile_top3.cuh column_top3 on every (column, 128-row tile) of
+    (P, R) scores, on the kernel's layout: lane tr holds rows tr + 32*i
+    (i < 4). Three rounds: each lane's best untaken key (a strict > walk
+    over i, so the lowest i wins ties), the warp max m of those, the warp
+    min of the rows of the lanes whose best is m, and the lane holding that
+    row sets its key to 0. -> (values (P, T, 3), batch lanes (P, T, 3)
+    int32)."""
+    p, r = sc.shape
+    t = r // 128
+    k = score_keys(sc).view(p, t, 4, 32)                  # [c, tile, i, tr]
+    tr = torch.arange(32)
+    vals, rows = [], []
+    for rnd in range(3):
+        best, best_row = k[:, :, 0], tr.expand(p, t, 32)
+        for i in range(1, 4):
+            take = k[:, :, i] > best
+            best = torch.where(take, k[:, :, i], best)
+            best_row = torch.where(take, tr + 32 * i, best_row)
+        m = best.amax(dim=-1, keepdim=True)                # __reduce_max_sync
+        row = torch.where(best == m, best_row, 0xFFFFFFFF).amin(
+            dim=-1, keepdim=True)                          # __reduce_min_sync
+        if rnd < 2:
+            d = row - tr                                   # (p, t, 32)
+            k = torch.where(d[:, :, None, :] == 32 * torch.arange(4)[:, None],
+                            0, k)
+        vals.append(m)
+        rows.append(row)
+    v = key_scores(torch.cat(vals, dim=-1))
+    g = torch.cat(rows, dim=-1) + 128 * torch.arange(t)[:, None]
+    return v, g.to(torch.int32)
+
+
+def top3_scores(case):
+    """(P, R) scores of one tie-heavy case of the kernels' top-3."""
+    rng = np.random.default_rng(60)
+    if case in ("tie_runs", "padding_tile", "mac_filtered"):
+        pb = problem(61, p=5, tie_runs=case == "tie_runs",
+                     pad_rows=128 + 9 if case == "padding_tile" else 9)
+        mc = pb["n"] if case == "mac_filtered" else 2
+        return emulate_scores_t(*torch_args(pb), n_used=pb["n"],
+                                min_count=mc, precision="default")
+    sc = torch.from_numpy(np.abs(dyadic(rng, (4, 384))))     # scores >= 0
+    if case == "one_lane":
+        # column c's three best rows of tile 0 all lie in lane 5 + c, and
+        # tile 1's three best, equal, in lane 7
+        for c in range(4):
+            sc[c, [5 + c, 37 + c, 69 + c]] = torch.tensor([9.0, 9.5, 9.25])
+        sc[:, [128 + 39, 128 + 71, 128 + 103]] = 9.0
+    else:
+        # dyadic ties split across lanes: few distinct values, and in tile
+        # 1 the best value only at rows 40, 9, 72 (lanes 8, 9, 8)
+        sc = torch.from_numpy(rng.integers(0, 3, size=(4, 384)).astype(
+            np.float32) / 8)
+        sc[:, 128:256] = 0.0
+        sc[:, [128 + 40, 128 + 9, 128 + 72]] = 1.0
+    sc[:, -5:] = float("-inf")
+    return sc
+
+
+@pytest.mark.parametrize("case", ["tie_runs", "padding_tile", "mac_filtered",
+                                  "one_lane", "dyadic_ties"])
+def test_emulated_tile_top3_equals_plain(case):
+    """The kernels' per-tile top-3 (K1's tile launch, K3, K8), emulated
+    round by round on ordered keys, equals the plain stable top-3 bit for
+    bit, lowest lane first on ties."""
+    sc = top3_scores(case)
+    assert not bool(sc.isnan().any())
+    assert not bool(((sc == 0) & sc.signbit()).any())    # no -0.0
+    v, g = emulate_tile_top3(sc)
+    v3, lanes, _ = score._tile_top3(sc, torch.full((sc.shape[0],),
+                                                   float("-inf")), 128)
+    assert torch.equal(v.view(torch.int32), v3.view(torch.int32))
+    assert torch.equal(g, lanes)
+    if case == "padding_tile":
+        assert bool((v[:, 1] == float("-inf")).all())
+        assert torch.equal(g[:, 1], torch.tensor([128, 129, 130]).expand(
+            sc.shape[0], 3).to(torch.int32))
+    if case == "mac_filtered":
+        assert bool((v[:, 0] == 0).all())
+        assert torch.equal(g[:, 0], torch.tensor([0, 1, 2]).expand(
+            sc.shape[0], 3).to(torch.int32))
+    if case == "one_lane":
+        assert torch.equal(g[:, 0] % 32, (5 + torch.arange(4))[:, None]
+                           .expand(4, 3).to(torch.int32))
+        assert torch.equal(g[:, 1], torch.tensor([167, 199, 231]).expand(
+            4, 3).to(torch.int32))
+    if case == "dyadic_ties":
+        assert torch.equal(g[:, 1], torch.tensor([137, 168, 200]).expand(
+            4, 3).to(torch.int32))
 
 
 @pytest.mark.parametrize("p", [3, 101])
