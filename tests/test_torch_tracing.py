@@ -1,5 +1,6 @@
 """The port's tracing (kmersgwas_tpu_torch.utils span / count / tracing):
-the spans of `associate`, `kinship_from_table` and the SNP prefilter with
+the spans of `associate`, `kinship_from_table`, the SNP prefilter and the
+SNP kinship with
 their parents, job ids and threads, the durations the results report, the counters, one clock
 with torch.profiler, no profiler range while tracing is off, and the
 Chrome-trace file of `tracing(path)` and the CLI's `--trace`."""
@@ -19,6 +20,7 @@ from kmersgwas_tpu_torch.pipeline import kinship as km
 from kmersgwas_tpu_torch.pipeline import scan as pscan
 from kmersgwas_tpu_torch.snps import assoc as passoc
 from kmersgwas_tpu_torch.snps import bed as pbed
+from kmersgwas_tpu_torch.snps import kinship as pkinship
 
 from test_pipeline import K, build_population
 from test_torch_snp_reference import make_case
@@ -214,6 +216,36 @@ def test_snp_prefilter_untraced_records_nothing(tmp_path, monkeypatch):
     assert not utils.recording()
     _snp_prefilter(tmp_path, chunk=64)
     assert utils.last_trace() == before
+
+
+def test_snp_kinship_spans_and_counters(tmp_path):
+    """`snp_kinship` holds one `bed_read`, `bed_decode` and `snp_gram` a
+    chunk, in that order; the counters are the bed's SNPs, chunks and body
+    bytes, and the SNPs with an observed call (the all-missing one left
+    out)."""
+    from test_torch_snp_kinship import make_bed
+    m, n, chunk = 203, 41, 50
+    base, _ = make_bed(tmp_path, 8, m=m, n=n, het=0.05, missing=0.05,
+                       all_missing=True)
+    with utils.tracing():
+        pkinship.emma_kinship_from_bed(base, chunk, device="cpu")
+    tr = utils.last_trace()
+    chunks = -(-m // chunk)
+    assert {s.name for s in tr.spans} == {"snp_kinship", "bed_read",
+                                          "bed_decode", "snp_gram"}
+    (root,) = tr.named("snp_kinship")
+    assert root.parent is None
+    inner = sorted((s for s in tr.spans if s is not root),
+                   key=lambda s: s.start_ns)
+    assert [s.name for s in inner] == ["bed_read", "bed_decode",
+                                       "snp_gram"] * chunks
+    for s in inner:
+        assert s.parent == root.id
+        assert root.start_ns <= s.start_ns and s.end_ns <= root.end_ns, s
+    assert tr.counters == {"snp_kinship.rows": m,
+                           "snp_kinship.chunks": chunks,
+                           "snp_kinship.bed_bytes": m * (-(-n // 4)),
+                           "snp_kinship.used": m - 1}
 
 
 def test_a_job_span_under_the_profiler_fills_the_recorder():
