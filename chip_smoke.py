@@ -871,6 +871,35 @@ def check_kinship_at(rows, n, n_rows, seed, label, timing=False):
     return t + tuple(tk) + (t_mm,)
 
 
+def select_bound_ms(rows, p, w, tile_rows=128, lists=1):
+    """The least time of K1's select launch: what it has to read once, at
+    the card's HBM rate (bench.CARD_PEAKS): each tile's three scores and
+    count (16 B a tile and column) and the lanes of the w winners of each
+    list (4 B each). K8's two lists read its probe tiles (tile_rows) the
+    same way."""
+    from kmersgwas_tpu_torch import bench
+    tiles = rows // tile_rows
+    read = p * tiles * (3 * 4 + 4) + lists * p * w * 4
+    return read / bench.CARD_PEAKS[0][1].hbm_bytes * 1e3
+
+
+def log_select_paths(fn, label):
+    """One call of fn under utils.tracing(): the `topw_select.<path>`
+    counts of its select launches and the blocks that took the radix
+    fallback (score.select_fallbacks, the kernel's device tally)."""
+    import torch
+    from kmersgwas_tpu_torch import utils
+    from kmersgwas_tpu_torch.ops import score
+    fb = score.select_fallbacks("cuda")
+    with utils.tracing():
+        fn()
+    torch.cuda.synchronize()
+    paths = {k: v for k, v in utils.last_trace().counters.items()
+             if k.startswith("topw_select.")}
+    log(f"{label}: select launches by path {paths}, radix fallbacks "
+        f"{score.select_fallbacks('cuda') - fb} blocks")
+
+
 def time_step_kernels(rows=2_097_152, n=1008, p=101, w=256):
     """K1 (its tile and select launches apart), K3, and K2, K4 and K5 (their
     kernels apart from the wrappers' operand build) on one flagship batch
@@ -926,12 +955,15 @@ def time_step_kernels(rows=2_097_152, n=1008, p=101, w=256):
                           for e in ("score_bmax", "score_t", "score_rows"))
             log(f"{'flagship' if n_s == n else f'N={n_s}'} {prec}: K1 "
                 f"score_topw {t_k1:.3f} ms (tile launch {tile:.3f} ms, "
-                f"select launch {sel:.3f} ms by the profiler), K3 "
+                f"select launch {sel:.4f} ms by the profiler against its "
+                f"bound {select_bound_ms(rows, p, w):.4f} ms), K3 "
                 f"score_tilemax {t_k3:.3f} ms, K2 score_bmax {t_k2:.3f} ms "
                 f"(kernel {p2:.3f} ms by the profiler), K4 score_t "
                 f"{t_k4:.3f} ms (kernel {p4:.3f} ms), K5 score_rows "
                 f"{t_k5:.3f} ms (kernel {p5:.3f} ms) (whole calls: median "
                 f"CUDA-event times)")
+    log_select_paths(lambda: score.score_batch_t_topw(
+        *args, tile_rows=128, cand_w=w, **kw), f"K1 at R={rows}, W={w}")
     g = bitplanes.unpack_bits(packed, torch.bfloat16)
     yb = torch.zeros((g.shape[1], -(-p // 8) * 8), dtype=torch.bfloat16,
                      device="cuda")
@@ -2212,6 +2244,8 @@ def phase_probe_kernels(rows=1 << 21, n=1008, p=101):
         torch.cuda.empty_cache()
     log(f"K8 score_parity (R={rows}, N={n}, P={p}): kernel {t8[0]:.3f} ms, "
         f"plain {t8[1]:.3f} ms; max abs err (gauss, highest) {err8:.3g}")
+    log_select_paths(lambda: score.score_batch_t_parity(
+        *args, precision="default", **kw), "K8 at tile 4096, w 128")
 
     # K10: the probes' generators, (rows, 32) with and without popcounts
     for g_rows in (1 << 19, 1 << 20, 1 << 21, 1 << 22, 1 << 23):
@@ -2240,19 +2274,30 @@ def probe_kernels_ms():
     """Phase 16's kernels alone by the profiler (run in a new process,
     in_fresh_process), each beside its whole call by CUDA events:
     tile_reduce (all seven planes) on the exp_kernel tool's plane, tile_topc
-    on its tile maxima, and K6 at the probes' generator shapes."""
+    on its tile maxima, K8's select launch (its two lists of the flagship
+    batch at tile 4096, w 128) and K6 at the probes' generator shapes."""
     import torch
+    from kmersgwas_tpu_torch.ops import score
     from kmersgwas_tpu_torch.ops import tilereduce as tred
     from kmersgwas_tpu_torch.tools import exp_kernel as ek
     x = torch.from_numpy(ek.tie_heavy()).to("cuda")
     th = torch.zeros(ek.P_PAD, device="cuda")
     m1 = tred.tile_reduce(x, None, n_tiles=ek.NT, planes=("m1",))["m1"]
+    rows, n, p = 1 << 21, 1008, 101
+    packed, pc, yp, ysum = make_batch(rows, n, p, 7, 0, False)
+    th8 = torch.full((p,), float("inf"), device="cuda")
     log_kernel_ms([
         (f"K9 tile_reduce (all seven planes, {tuple(x.shape)})",
          lambda: tred.tile_reduce(x, th, n_tiles=ek.NT),
          "tile_reduce_kernel"),
         (f"K9 tile_topc ({tuple(m1.shape)})", lambda: tred.tile_topc(m1),
          "tile_topc_kernel"),
+        (f"K8's select launch (R={rows}, P={p}, tile 4096, w 128; bound "
+         f"{select_bound_ms(rows, p, 128, 4096, 2):.4f} ms)",
+         lambda: score.score_batch_t_parity(packed, pc, yp, ysum, th8,
+                                            n_used=n, min_count=51,
+                                            tile_rows=4096, w=128),
+         "topw_select"),
         *gen_jobs(PROBE_GEN_SHAPES)])
 
 

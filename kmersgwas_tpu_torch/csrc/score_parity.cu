@@ -68,14 +68,15 @@ __global__ void __launch_bounds__(THREADS) parity_merge_kernel(
 // b, ysum, thresh: as launch_topw_tiles takes them (score_topw.cuh);
 // tile_*: (p, 3*R/128) and (p, R/128) scratch of launch A; mrg_*: (p,
 // 3*R/tile_rows) and (p, R/tile_rows) scratch of the merge (unused when
-// tile_rows == 128); out_v/out_g: (2, p, w) lists A and B; out_ok: (p,).
+// tile_rows == 128); out_v/out_g: (2, p, w) lists A and B; out_ok: (p,);
+// fallbacks as K1's select takes it (score_topw.cuh).
 extern "C" int kgt_score_parity(
         const uint32_t* packed, const float* popcnt, const void* b,
         const float* ysum, const float* thresh, long long n_rows, int w32,
         int p, int nc, int n_cc, int planes, float n_used, float min_count,
-        int tile_rows, int w, int sort_cap, float* tile_v, int* tile_g,
-        int* tile_cnt, float* mrg_v, int* mrg_g, int* mrg_cnt, float* out_v,
-        int* out_g, int* out_ok, void* stream) {
+        int tile_rows, int w, float* tile_v, int* tile_g, int* tile_cnt,
+        float* mrg_v, int* mrg_g, int* mrg_cnt, float* out_v, int* out_g,
+        int* out_ok, unsigned* fallbacks, void* stream) {
     using namespace kgt;
     if (tile_rows <= 0 || tile_rows % TILE_ROWS || n_rows % tile_rows)
         return (int)cudaErrorInvalidValue;
@@ -99,8 +100,6 @@ extern "C" int kgt_score_parity(
         mrg_g = tile_g;
         mrg_cnt = tile_cnt;
     }
-    topw_select_kernel<<<dim3(p, 2), THREADS,
-                         sizeof(unsigned long long) * sort_cap, st>>>(
-        mrg_v, mrg_g, mrg_cnt, n_probe, w, sort_cap, out_v, out_g, out_ok);
-    return (int)cudaGetLastError();
+    return (int)launch_topw_select(mrg_v, mrg_g, mrg_cnt, n_probe, p, 2, w,
+                                   out_v, out_g, out_ok, fallbacks, st);
 }

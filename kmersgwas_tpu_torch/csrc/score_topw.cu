@@ -16,8 +16,11 @@
 //      (score, lane), lowest lane first on ties, and the count of lanes
 //      scoring > thresh (tile_top3.cuh, shared with score_tilemax.cu).
 //   B. topw_select: per column the exact top-W of the 3*n_tiles candidates
-//      by (score desc, lane asc), radix select and bitonic sort, and the
-//      AND of the tile guards; padded with (-inf, 0) below W candidates.
+//      by (score desc, lane asc) and the AND of the tile guards; padded
+//      with (-inf, 0) below W candidates. One 1024-thread block a column
+//      reads the scores, bounds the W-th score by the W-th largest of
+//      its threads' top-2 and sorts only the candidates at or above it
+//      (score_topw.cuh has the paths).
 // Lanes are exact, so the TPU kernel's sum-encoded 2nd/3rd lanes and their
 // n2/n3 ambiguity guards have no counterpart here.
 //
@@ -35,8 +38,11 @@
 // phase 2 times both). The scores go through shared memory and every
 // column's top-3 is three rounds of two warp reductions (tile_top3.cuh),
 // per 128-row tile. The epilogue does not overlap the next tile's products
-// within a block; the SM's second block covers part of it. Launch B reads
-// the 3*n_tiles candidates of its column nine times (L2-resident).
+// within a block; the SM's second block covers part of it. Launch B's
+// bound is the scores and tile counts read once and the winners' lanes,
+// 25 MB at the flagship batch (7.6 us at 3.35 TB/s); it reads the scores
+// once (a few warps twice), the counts once and the lanes of the few
+// hundred candidates it sorts.
 #include "score_topw.cuh"
 #include "score_wgmma.cuh"
 
@@ -117,20 +123,37 @@ extern "C" int kgt_score_topw(
         const uint32_t* packed, const float* popcnt, const void* b,
         const float* ysum, const float* thresh, long long n_rows, int w32,
         int p, int nc, int n_cc, int planes, float n_used, float min_count,
-        int cand_w, int sort_cap, float* tile_v, int* tile_g, int* tile_cnt,
-        float* out_v, int* out_g, int* out_ok, void* stream) {
+        int cand_w, float* tile_v, int* tile_g, int* tile_cnt,
+        float* out_v, int* out_g, int* out_ok, unsigned* fallbacks,
+        void* stream) {
     using namespace kgt;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const cudaError_t e = launch_topw_tiles(
         packed, popcnt, b, ysum, thresh, n_rows, w32, p, nc, n_cc, planes,
         n_used, min_count, tile_v, tile_g, tile_cnt, st);
     if (e != cudaSuccess) return (int)e;
-    const int n_tiles = (int)(n_rows / TILE_ROWS);
-    topw_select_kernel<<<p, THREADS, sizeof(unsigned long long) * sort_cap,
-                         st>>>(
-        tile_v, tile_g, tile_cnt, n_tiles, cand_w, sort_cap, out_v, out_g,
-        out_ok);
-    return (int)cudaGetLastError();
+    return (int)launch_topw_select(
+        tile_v, tile_g, tile_cnt, (int)(n_rows / TILE_ROWS), p, 1, cand_w,
+        out_v, out_g, out_ok, fallbacks, st);
+}
+
+// The select alone on candidates already in tile_v/tile_g/tile_cnt (the
+// layout launch A writes; with lists == 2, K8's two lists): for tests and
+// chip_smoke.py.
+extern "C" int kgt_topw_select(
+        const float* tile_v, const int* tile_g, const int* tile_cnt,
+        int n_tiles, int p, int lists, int w, float* out_v, int* out_g,
+        int* out_ok, unsigned* fallbacks, void* stream) {
+    return (int)kgt::launch_topw_select(
+        tile_v, tile_g, tile_cnt, n_tiles, p, lists, w, out_v, out_g, out_ok,
+        fallbacks, static_cast<cudaStream_t>(stream));
+}
+
+// The path the select takes for these shapes (score_topw.cuh select_path:
+// 0 sort, 1 stream, as ops/score.py SELECT_PATHS names them; -1 refused).
+// Host only: the wrappers count launches by it.
+extern "C" int kgt_select_path(int n_tiles, int lists, int w) {
+    return kgt::select_path(n_tiles, lists, w);
 }
 
 extern "C" const char* kgt_error_string(int code) {

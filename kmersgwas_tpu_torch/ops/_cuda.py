@@ -129,9 +129,19 @@ def library() -> KernelLib:
         _P, _P, _P, _P, _P,            # packed, popcnt, b, ysum, thresh
         _LL, _I, _I,                   # n_rows, w32, p
         _I, _I, _I, _F, _F,            # nc, n_cc, planes, n, min_count
-        _I, _I,                        # cand_w, sort_cap
+        _I,                            # cand_w
         _P, _P, _P,                    # tile_v, tile_g, tile_cnt
         _P, _P, _P,                    # out_v, out_g, out_ok
+        _P,                            # fallbacks
+        _P]                            # stream
+    lib.kgt_select_path.restype = _I
+    lib.kgt_select_path.argtypes = [_I, _I, _I]    # n_tiles, lists, w
+    lib.kgt_topw_select.restype = _I
+    lib.kgt_topw_select.argtypes = [
+        _P, _P, _P,                    # tile_v, tile_g, tile_cnt
+        _I, _I, _I, _I,                # n_tiles, p, lists, w
+        _P, _P, _P,                    # out_v, out_g, out_ok
+        _P,                            # fallbacks
         _P]                            # stream
     for name, outs in (("kgt_score_bmax", [_P, _P]),   # scores, bmax
                        ("kgt_score_t", [_P]),           # scores
@@ -172,10 +182,11 @@ def library() -> KernelLib:
         _P, _P, _P, _P, _P,            # packed, popcnt, b, ysum, thresh
         _LL, _I, _I,                   # n_rows, w32, p
         _I, _I, _I, _F, _F,            # nc, n_cc, planes, n, min_count
-        _I, _I, _I,                    # tile_rows, w, sort_cap
+        _I, _I,                        # tile_rows, w
         _P, _P, _P,                    # tile_v, tile_g, tile_cnt
         _P, _P, _P,                    # mrg_v, mrg_g, mrg_cnt
         _P, _P, _P,                    # out_v, out_g, out_ok
+        _P,                            # fallbacks
         _P]                            # stream
     lib.kgt_tile_reduce.restype = _I
     lib.kgt_tile_reduce.argtypes = [

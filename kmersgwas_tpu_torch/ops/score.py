@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils import span
+from ..utils import count, span
 from . import _cuda
 from .bitplanes import unpack_bits
 from .topk import sort_desc_index_asc, top_k
@@ -214,6 +214,21 @@ def _select(cat_v, cat_g, w: int):
         cat_g = torch.nn.functional.pad(cat_g, (0, pad))
     v, g = sort_desc_index_asc(cat_v, cat_g)
     return v[:, :w].contiguous(), g[:, :w].contiguous()
+
+
+def topw_select_plain(tile_v, tile_g, tile_cnt, w: int, lists: int = 1):
+    """Plain version of K1's select launch on a batch's tile candidates
+    (tile_v (P, 3T) f32, tile_g (P, 3T) int32 lanes, tile_cnt (P, T)): per
+    list the top `w` by (score desc, lane asc), padded with (-inf, 0), and
+    ok (P,): every tile holds at most 3 lanes > thresh. With two lists (K8)
+    list L holds the tiles t with t % 2 == L. -> (values (lists, P, w),
+    lanes (lists, P, w), ok)."""
+    p = tile_v.shape[0]
+    v3, g3 = tile_v.view(p, -1, 3), tile_g.view(p, -1, 3)
+    outs = [_select(v3[:, l::lists].reshape(p, -1),
+                    g3[:, l::lists].reshape(p, -1), w) for l in range(lists)]
+    return (torch.stack([v for v, _ in outs]),
+            torch.stack([g for _, g in outs]), (tile_cnt <= 3).all(dim=1))
 
 
 def topw_plain(packed, popcnt, y_padded, y_sum, thresh, *, n_used: int,
@@ -440,6 +455,87 @@ def score_batch(packed, popcnt, y_padded, y_sum, *, n_used: int,
 score_batch.launches = 0
 
 
+SELECT_PATHS = ("sort", "stream")
+
+
+def select_path(n_tiles: int, lists: int, w: int) -> str:
+    """The path K1's select launch takes over n_tiles tiles of candidates
+    in `lists` lists (K8: 2, tiles alternating) at w, a name of
+    SELECT_PATHS, as csrc/score_topw.cuh `select_path` picks it from the
+    lists' candidate counts: "sort" sorts each list whole, padded to w,
+    where the longer holds at most 1024 or the shorter fewer than w;
+    "stream" bounds the w-th score and sorts the candidates above it.
+    Asks the kernel library (card only); no sync."""
+    path = _cuda.library().lib.kgt_select_path(n_tiles, lists, w)
+    if path < 0:
+        raise ValueError(f"no select for n_tiles={n_tiles}, lists={lists}, "
+                         f"w={w}")
+    return SELECT_PATHS[path]
+
+
+def _count_select(n_tiles: int, lists: int, w: int) -> None:
+    """Counts a select launch as `topw_select.<path>` (utils.count)."""
+    count(f"topw_select.{select_path(n_tiles, lists, w)}")
+
+
+_FALLBACKS: dict = {}
+
+
+def _fallback_counter(dev) -> torch.Tensor:
+    """The device integer the select's radix fallback adds 1 to a block
+    (one a device, made at its first launch; a bare "cuda" is the current
+    device)."""
+    d = torch.device(dev)
+    if d.index is None:
+        d = torch.device(d.type, torch.cuda.current_device())
+    if d not in _FALLBACKS:
+        _FALLBACKS[d] = torch.zeros(1, dtype=torch.int32, device=d)
+    return _FALLBACKS[d]
+
+
+def select_fallbacks(dev) -> int:
+    """Blocks of K1's select (and K8's) on `dev` that took the radix
+    fallback since the process began. Synchronizes: for tests and
+    chip_smoke.py, never the step."""
+    return int(_fallback_counter(dev).item())
+
+
+def topw_select(tile_v, tile_g, tile_cnt, w: int, lists: int = 1):
+    """K1's select launch alone (csrc/score_topw.cu `kgt_topw_select`) on
+    tile candidates as its tile launch writes them: -> topw_select_plain's
+    (values (lists, P, w), lanes, ok). CPU tensors take the plain version.
+    On the card: float32 tile_v and int32 tile_g (P, 3T), int32 tile_cnt
+    (P, T), contiguous; lanes unique within a column; 1 <= w <= 1024."""
+    if tile_v.device.type == "cpu":
+        return topw_select_plain(tile_v, tile_g, tile_cnt, w, lists)
+    _require_cuda(tile_v)
+    p, t = tile_cnt.shape
+    dev = tile_v.device
+    for name, x, dt, shape in (("tile_v", tile_v, torch.float32, (p, 3 * t)),
+                               ("tile_g", tile_g, torch.int32, (p, 3 * t)),
+                               ("tile_cnt", tile_cnt, torch.int32, (p, t))):
+        if x.device != dev or x.dtype != dt or x.shape != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} {dt} "
+                             f"tensor on {dev}")
+    if not 1 <= w <= 1024 or lists not in (1, 2):
+        raise ValueError(f"w must be in [1, 1024] and lists 1 or 2, got "
+                         f"{w}, {lists}")
+    out_v = torch.empty((lists, p, w), dtype=torch.float32, device=dev)
+    out_g = torch.empty((lists, p, w), dtype=torch.int32, device=dev)
+    out_ok = torch.empty((p,), dtype=torch.int32, device=dev)
+    _count_select(t, lists, w)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = lib.lib.kgt_topw_select(
+            tile_v.data_ptr(), tile_g.data_ptr(), tile_cnt.data_ptr(), t, p,
+            lists, w, out_v.data_ptr(), out_g.data_ptr(),
+            out_ok.data_ptr(), _fallback_counter(dev).data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "topw_select")
+    return out_v, out_g, out_ok.bool()
+
+
 @span("score_batch_t_topw")
 def score_batch_t_topw(packed, popcnt, y_padded, y_sum, thresh, *,
                        n_used: int, min_count: int, tile_rows: int,
@@ -473,15 +569,16 @@ def score_batch_t_topw(packed, popcnt, y_padded, y_sum, thresh, *,
     out_v = torch.empty((p, cand_w), dtype=torch.float32, device=dev)
     out_g = torch.empty((p, cand_w), dtype=torch.int32, device=dev)
     out_ok = torch.empty((p,), dtype=torch.int32, device=dev)
-    sort_cap = 1 << (cand_w - 1).bit_length()
+    _count_select(n_tiles, 1, cand_w)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.lib.kgt_score_topw(
             packed.data_ptr(), popcnt.data_ptr(), b.data_ptr(),
             ys.data_ptr(), th.data_ptr(), rows, w32, p, *_chunk_args(b),
-            float(n_used), float(min_count), cand_w, sort_cap,
+            float(n_used), float(min_count), cand_w,
             tile_v.data_ptr(), tile_g.data_ptr(), tile_cnt.data_ptr(),
             out_v.data_ptr(), out_g.data_ptr(), out_ok.data_ptr(),
+            _fallback_counter(dev).data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc, "score_topw")
     score_batch_t_topw.launches += 1
@@ -527,16 +624,17 @@ def score_batch_t_parity(packed, popcnt, y_padded, y_sum, thresh, *,
     out_v = torch.empty((2, p, w), dtype=torch.float32, device=dev)
     out_g = torch.empty((2, p, w), dtype=torch.int32, device=dev)
     out_ok = torch.empty((p,), dtype=torch.int32, device=dev)
-    sort_cap = 1 << (w - 1).bit_length()
+    _count_select(n_probe, 2, w)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.lib.kgt_score_parity(
             packed.data_ptr(), popcnt.data_ptr(), b.data_ptr(),
             ys.data_ptr(), th.data_ptr(), rows, w32, p, *_chunk_args(b),
-            float(n_used), float(min_count), tile_rows, w, sort_cap,
+            float(n_used), float(min_count), tile_rows, w,
             tile_v.data_ptr(), tile_g.data_ptr(), tile_cnt.data_ptr(),
             mrg_v.data_ptr(), mrg_g.data_ptr(), mrg_cnt.data_ptr(),
             out_v.data_ptr(), out_g.data_ptr(), out_ok.data_ptr(),
+            _fallback_counter(dev).data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc, "score_parity")
     score_batch_t_parity.launches += 1

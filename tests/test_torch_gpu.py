@@ -715,6 +715,92 @@ def test_parity_kernel_equals_plain(cuda, tile_rows, w, ties):
     assert score.score_batch_t_parity.launches == before + 2
 
 
+def select_inputs(n_tiles, p, kind, seed, dev):
+    """Tile candidates as K1's tile launch lays them out, (P, 3T) scores
+    and lanes and (P, T) counts, made on the card: lanes unique in a column
+    (a permutation), no -0.0 and no NaN (the tile launch writes neither).
+    kind: random Gaussian scores, dyadic (steps of 1/8: long runs of equal
+    scores), tied (every score 2.5), neg_inf (100 finite scores a column,
+    the rest -inf, as in a batch of padding)."""
+    gen_ = torch.Generator(device=dev).manual_seed(seed)
+    n = 3 * n_tiles
+    if kind == "tied":
+        v = torch.full((p, n), 2.5, device=dev)
+    else:
+        v = torch.randn((p, n), generator=gen_, device=dev)
+        if kind == "dyadic":
+            v = torch.round(v * 8) / 8
+        elif kind == "neg_inf":
+            keep = torch.rand((p, n), generator=gen_, device=dev).argsort(
+                dim=1)[:, :100]
+            v = torch.full_like(v, float("-inf")).scatter(
+                1, keep, v.gather(1, keep))
+    v = torch.where(v == 0, 0.0, v).contiguous()
+    g = torch.rand((p, n), generator=gen_, device=dev).argsort(dim=1).to(
+        torch.int32)
+    cnt = torch.randint(0, 4, (p, n_tiles), generator=gen_, device=dev,
+                        dtype=torch.int32)
+    cnt[::3, n_tiles // 2] = 5                          # a third not ok
+    return v, g, cnt
+
+
+# (n_tiles, P, W, lists, kind, path, fallback): the flagship's 46,875
+# candidates, 3 * 2^16, n < W, n = W and n = W + 1 (sort), W from 1 to
+# 1024, P 1 to 1013, every score tied and -inf scores (past the stream
+# path's 4096-key sort buffer: the radix fallback in every block; within it,
+# none), K8's two lists with odd n_tiles on both paths and where one list
+# holds more than 1024 and the other fewer than W (sort). fallback None:
+# dyadic scores may or may not fill the buffer.
+SELECT_CASES = [
+    (15_625, 101, 256, 1, "random", "stream", False),
+    (1 << 16, 3, 256, 1, "random", "stream", False),
+    (50, 7, 256, 1, "random", "sort", False),
+    (85, 7, 255, 1, "dyadic", "sort", False),
+    (85, 7, 254, 1, "random", "sort", False),
+    (15_625, 101, 1, 1, "random", "stream", False),
+    (15_625, 101, 64, 1, "dyadic", "stream", None),
+    (15_625, 101, 1000, 1, "random", "stream", False),
+    (15_625, 101, 1024, 1, "dyadic", "stream", None),
+    (15_625, 1, 256, 1, "random", "stream", False),
+    (15_625, 1013, 256, 1, "random", "stream", False),
+    (2_000, 1013, 256, 1, "dyadic", "stream", None),
+    (15_625, 101, 256, 1, "tied", "stream", True),
+    (1 << 16, 2, 1024, 1, "tied", "stream", True),
+    (15_625, 101, 256, 1, "neg_inf", "stream", True),
+    (1_000, 5, 256, 1, "tied", "stream", False),
+    (341, 101, 1024, 1, "dyadic", "sort", False),
+    (511, 101, 128, 2, "dyadic", "sort", False),
+    (1_001, 101, 128, 2, "dyadic", "stream", None),
+    (683, 7, 1024, 2, "random", "sort", False),
+    (16_383, 101, 128, 2, "random", "stream", False),
+    (40_001, 5, 128, 2, "tied", "stream", True)]
+
+
+@pytest.mark.parametrize("n_tiles,p,w,lists,kind,path,fallback",
+                         SELECT_CASES)
+def test_select_launch_equals_plain(cuda, n_tiles, p, w, lists, kind, path,
+                                    fallback):
+    """K1's select launch alone (score.topw_select) against the plain
+    select of each list and the guard AND, bit for bit; the kernel picks
+    the case's path and its `topw_select.<path>` count rises by one; the
+    device tally of the radix fallback rises by one a block where the case
+    says so and stays where it says not."""
+    from kmersgwas_tpu_torch import utils
+    v, g, cnt = select_inputs(n_tiles, p, kind, n_tiles + p + w, cuda)
+    assert score.select_path(n_tiles, lists, w) == path
+    fb0 = score.select_fallbacks(cuda)
+    with utils.tracing():
+        got = score.topw_select(v, g, cnt, w, lists)
+    torch.cuda.synchronize()
+    assert utils.last_trace().counters == {f"topw_select.{path}": 1}
+    want = score.topw_select_plain(v, g, cnt, w, lists)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if fallback is not None:
+        assert score.select_fallbacks(cuda) - fb0 == (p * lists if fallback
+                                                       else 0)
+
+
 def test_gen_planes_without_popcounts(cuda):
     planes, _ = gen.gen_planes(1 << 16, 32, 3, 9, cuda)
     alone = gen.gen_planes(1 << 16, 32, 3, 9, cuda, popcount=False)

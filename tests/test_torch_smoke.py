@@ -204,3 +204,20 @@ def test_compare_gwas_outputs_parses_floats_and_holds_bytes():
                 gwas_files(p_line="P2\t3.25")):
         with pytest.raises(chip_smoke.PhaseError):
             chip_smoke.compare_gwas_outputs(a, bad)
+
+
+@pytest.mark.parametrize("rows,p,w,tile_rows,lists,want_ms", [
+    (2_000_000, 101, 256, 128, 1,
+     (101 * 15_625 * 16 + 101 * 256 * 4) / 3.35e12 * 1e3),
+    (2_097_152, 101, 128, 4096, 2,
+     (101 * 512 * 16 + 2 * 101 * 128 * 4) / 3.35e12 * 1e3)])
+def test_select_bound_reads_each_candidate_once(rows, p, w, tile_rows, lists,
+                                                want_ms):
+    """K1's select launch (and K8's, on its probe tiles) is bounded by what
+    it has to read once: per tile and column three scores and a count, 16
+    bytes, and the lanes of each list's w winners, at the H100's 3.35 TB/s;
+    7.57 us at the scan cell's 2,000,000-row batch."""
+    got = chip_smoke.select_bound_ms(rows, p, w, tile_rows, lists)
+    assert got == pytest.approx(want_ms)
+    if tile_rows == 128:
+        assert got == pytest.approx(0.007568, rel=1e-3)
